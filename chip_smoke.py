@@ -13,17 +13,26 @@ non-zero exit):
      bench corpus (100k docs, 50k-term Zipf(0.7) vocabulary, ~80 postings
      per doc with gamma(2, 1.5) impacts, 1 + Poisson(2) chunks per doc
      capped at 10, unit-norm 768-d chunk vectors), made from --seed, and
-     the port's SearchEngine built over it on the card;
-  4. kernels: every kernel of the path against its plain PyTorch version
-     on the same tensors at the path's shapes, with times (CUDA events);
-  5. end to end: SearchEngine.search_batch on batches of 1, 16 and 64
-     queries (one per BM25 dispatch branch), the launch counters set to 0
-     before each batch and read after it (exactly that branch's BM25
-     kernel once, the stats kernel once per bucket), results held against
-     the port's own engine on the CPU and against its numpy oracle, then
-     queries/s, p50 latency and one torch.profiler trace per batch
-     (device busy time, idle share, device time per kernel);
-  6. a {"kernels": [...]} JSON line (time, bound, plain time, error per kernel),
+     the port's SearchEngine built over it on the card twice: the default
+     slot layout and ``bm25_layout="blocked"``;
+  4. kernels: every kernel of both paths against its plain PyTorch
+     version on the same tensors at the path's shapes, with times (CUDA
+     events); the blocked kernel's scores also against the slot kernel's;
+  5. end to end, each path in turn: SearchEngine.search_batch on batches
+     of 1, 16 and 64 queries for the slot path and of 1, 64 sharing few
+     terms and 64 with many for the blocked path (one per BM25 dispatch
+     branch), the launch counters set to 0 before each batch and read
+     after it (exactly that branch's BM25 kernel once, the stats kernel
+     once per bucket); the slot results held against the port's own
+     engine on the CPU and the numpy oracle, the blocked results against
+     the slot engine and the numpy oracle; then queries/s, p50 latency and
+     one torch.profiler trace per batch (device busy time, idle share,
+     device time per kernel);
+  6. small phases: an empty index (served by the blocked kernel, every
+     entry point returns []); U = 1152 distinct terms and T = 80 term
+     slots on every BM25 kernel against its plain version;
+     approx_candidates=True equal to the exact engine;
+  7. a {"kernels": [...]} JSON line (time, bound, plain time, error per kernel),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 """
 
@@ -40,23 +49,39 @@ import numpy as np
 import torch
 
 from modern_search_engines_project_tpu_torch.config import Config
-from modern_search_engines_project_tpu_torch.index import IndexArtifacts
+from modern_search_engines_project_tpu_torch.index import IndexArtifacts, IndexBuilder
 from modern_search_engines_project_tpu_torch.index.vocab import TermDictionary
 from modern_search_engines_project_tpu_torch.models import HashingEncoder
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
+from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
+    BLOCKED_KERNEL,
+    blocked_plain,
+    blocked_udedup_gate,
+    blocked_udedup_plain,
+    bm25_score_blocked,
+    bm25_score_blocked_udedup,
+)
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
     UDEDUP_KERNELS,
+    bm25_score_slots,
     dedup_query_terms,
     slots_keyed,
     slots_plain,
     slots_udedup_keyed,
     slots_udedup_plain,
+    u_pad_for,
 )
 from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
     bucket_sims,
     bucket_stats,
     stats_max_abs_err,
     stats_plain,
+)
+from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+    build_blocked_postings,
+    build_slot_postings,
+    pack_blocked,
+    pack_slot_classes,
 )
 from modern_search_engines_project_tpu_torch.retrieval.engine import SearchEngine
 from modern_search_engines_project_tpu_torch.retrieval.numpy_ref import (
@@ -78,6 +103,10 @@ BF16_OPS = 989e12
 # sum 768 f32 products in different orders (~1e-6); 1e-4 leaves room.
 BM25_ATOL = 1e-5
 STATS_ATOL = 1e-4
+# U = 1152 / T = 80: with 77 terms a query a doc sums up to 77 matched
+# products and scores reach ~100, where one f32 ulp is 7.6e-6; sums taken
+# in another order differ by a few ulps -> rtol 1e-6 beside atol 1e-5.
+WIDE_RTOL = 1e-6
 # End to end: the card's engine and the CPU engine (same bf16 bank) differ
 # only in summation order inside the stats and the f32 fusion arithmetic;
 # after min-max normalization that stays far below 1e-3.  Ids must match
@@ -162,16 +191,23 @@ def make_artifacts(seed, n_docs, n_terms, nnz_target, avg_chunks, dim):
     return art, words, dfs
 
 
-def sample_terms(rng, dfs, B, T, by_df=True):
+def sample_terms(rng, dfs, B, T, by_df=True, pool=None):
     """Per query 1-5 terms (by document frequency, or uniform), as in the
-    bench's query model; returns (term_ids [B, T] pad -1, qtf [B, T])."""
+    bench's query model, or 2-5 distinct terms from the ``pool`` most
+    frequent ones (a batch sharing terms); returns (term_ids [B, T] pad -1,
+    qtf [B, T])."""
     n_terms = len(dfs)
     probs = dfs / dfs.sum() if by_df else None
+    top = np.argsort(-dfs[1:], kind="stable")[: pool or 1] + 1
     tids = np.full((B, T), -1, np.int32)
     qtf = np.zeros((B, T), np.float32)
     for b in range(B):
         n_q = int(rng.integers(1, 6)) if by_df else T - 1
-        draws = np.concatenate([[0], rng.choice(n_terms, size=n_q, p=probs)])
+        if pool:
+            draw = rng.choice(top, int(rng.integers(2, 6)), replace=False)
+        else:
+            draw = rng.choice(n_terms, size=n_q, p=probs)
+        draws = np.concatenate([[0], draw])
         uniq, counts = np.unique(draws, return_counts=True)
         tids[b, : len(uniq)] = uniq[:T]
         qtf[b, : len(uniq)] = counts[:T]
@@ -327,6 +363,265 @@ def check_kernels(eng, dfs, rng):
     return rows
 
 
+def to_artifact_order(keyed, doc_perm, n_docs):
+    """Keyed scores [B, n_docs_pad + 1] in an engine's permuted doc order ->
+    [B, n_docs] in artifact order (so two layouts can be compared)."""
+    real = np.nonzero(doc_perm >= 0)[0]
+    out = torch.empty(keyed.shape[0], n_docs, device=keyed.device)
+    out[:, torch.as_tensor(doc_perm[real], device=keyed.device)] = keyed[
+        :, torch.as_tensor(real, device=keyed.device)
+    ]
+    return out
+
+
+def check_blocked_kernels(eng_b, eng_s, dfs, rng):
+    """Phase 4, blocked path: kernels 7 and 8 against their plain versions
+    on the blocked engine's tensors; kernel 7 also against slot kernel 1
+    on the slot engine (both mapped to artifact doc order)."""
+    d = eng_b.didx
+    blk = d.blocked
+    dev = eng_b.device
+    # What the scoring function must move: the 4-byte term id of every real
+    # posting (a row's pads, from doc_off[i, 128] on, are never read), the
+    # per-row doc offsets (129 int32 a row, in place of a local id per
+    # slot), a 4-byte impact per matched posting, queries, keyed output.
+    n_real = int(blk.doc_off[:, -1].sum().item())
+    base_bytes = n_real * 4 + blk.doc_off.numel() * 4
+    rows = {}
+
+    def matched_postings(ids):
+        return int(torch.isin(blk.terms, ids[ids >= 0]).sum().item())
+
+    err, main = 0.0, None
+    for B in (1, 16, 64):
+        tids, qtf = sample_terms(rng, dfs, B, 8)
+        t = torch.as_tensor(tids, device=dev)
+        q = torch.as_tensor(qtf, device=dev)
+        got = bm25_score_blocked(blk, t, q)
+        want = blocked_plain(blk, t, q)
+        e = (got - want).abs().max().item()
+        check(e <= BM25_ATOL, f"bm25_blocked B={B}: max err {e}")
+        check(torch.equal(got < 0, want < 0), f"bm25_blocked B={B}: keys")
+        err = max(err, e)
+        ms = cuda_ms(lambda: bm25_score_blocked(blk, t, q), 20)
+        pms = cuda_ms(lambda: blocked_plain(blk, t, q), 3, 1)
+        matched = matched_postings(t)
+        nb = base_bytes + matched * 4 + tids.nbytes + qtf.nbytes
+        nb += got.numel() * 4
+        b_ms, b_by = bound(nb, n_real * B * (8 + 2), F32_OPS)
+        log(f"  bm25_blocked B={B} T=8: err {e:.2e} kernel {ms:.4f} ms "
+            f"plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; {matched} of "
+            f"{n_real} postings matched)")
+        if B == 16:
+            slot = bm25_score_slots(eng_s.didx, t, q)
+            n = eng_b.art.n_docs
+            a = to_artifact_order(got, d.doc_perm, n)
+            b = to_artifact_order(slot, eng_s.didx.doc_perm, n)
+            e_s = (a - b).abs().max().item()
+            check(e_s <= BM25_ATOL and torch.equal(a < 0, b < 0),
+                  f"bm25_blocked vs bm25_slots B=16: max err {e_s}")
+            log(f"  bm25_blocked == bm25_slots at B=16 in artifact doc "
+                f"order (max err {e_s:.2e})")
+        if B == 1:  # the engine's kernel-7 branch: every B = 1 batch
+            main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+    rows["bm25_blocked"] = dict(main, max_abs_err=err)
+
+    err, main = 0.0, None
+    for B, pool in ((1, None), (16, None), (64, None), (64, 100)):
+        tids, qtf = sample_terms(rng, dfs, B, 8, pool=pool)
+        uids, w = dedup_query_terms(tids, qtf)
+        u = torch.as_tensor(uids, device=dev)
+        wt = torch.as_tensor(w, device=dev)
+        got = bm25_score_blocked_udedup(blk, u, wt)
+        want = blocked_udedup_plain(blk, u, wt)
+        e = (got - want).abs().max().item()
+        check(e <= BM25_ATOL, f"bm25_blocked_udedup B={B} U={u.numel()}: {e}")
+        check(torch.equal(got < 0, want < 0), f"bm25_blocked_udedup B={B}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: bm25_score_blocked_udedup(blk, u, wt), 20)
+        pms = cuda_ms(lambda: blocked_udedup_plain(blk, u, wt), 3, 1)
+        matched = matched_postings(u)
+        nb = base_bytes + matched * 4 + uids.nbytes + w.nbytes
+        nb += got.numel() * 4
+        b_ms, b_by = bound(nb, n_real + matched * 2 * B, F32_OPS)
+        log(f"  bm25_blocked_udedup B={B} U={u.numel()}: err {e:.2e} kernel "
+            f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
+            f"{matched} of {n_real} postings matched)")
+        if pool:  # the engine's kernel-8 branch: B = 64 sharing terms
+            main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+    rows["bm25_blocked_udedup"] = dict(main, max_abs_err=err)
+    return rows
+
+
+def shared_batch(rng, dfs, words, B=64, pool=100):
+    """B queries of 2-5 terms from the ``pool`` most frequent terms (the
+    anchor aside): at most pool + 1 distinct terms, so the U-dedup bucket
+    is 128; the first query has 5, so the term axis buckets to 8."""
+    top = np.argsort(-dfs[1:], kind="stable")[:pool] + 1  # term 0: anchor
+    qs = []
+    for b in range(B):
+        n = 5 if b == 0 else int(rng.integers(2, 6))
+        qs.append(" ".join(words[t] for t in rng.choice(top, n, replace=False)))
+    return qs
+
+
+def drive(eng, batches, want_bm25, label):
+    """Each batch through ``search_batch`` as its own path: every launch
+    counter set to 0 just before, read just after; the batch's BM25 kernel
+    must have launched once, the stats kernel once per bucket, nothing
+    else.  Returns (results, launches) keyed like ``batches``."""
+    n_buckets = len(eng.didx.buckets)
+    results, launches = {}, {}
+    for key, qs in batches.items():
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+        results[key] = eng.search_batch(qs, top_k=10)
+        launches[key] = {k.name: k.launches for k in cuda_lib.KERNELS}
+        log(f"main path {label} {key} launches: {launches[key]}")
+        for k_name, n in launches[key].items():
+            want = (1 if k_name == want_bm25[key] else n_buckets
+                    if k_name == "dense_stats" else 0)
+            check(n == want,
+                  f"{label} {key}: {k_name} launched {n} times, not {want}")
+    for key, res in results.items():
+        qs = batches[key]
+        check(len(res) == len(qs) and all(len(r) > 0 for r in res),
+              f"{label} {key}: empty")
+        for r in res:
+            sc = [x.similarity_score for x in r]
+            check(np.all(np.isfinite(sc)) and sc == sorted(sc, reverse=True),
+                  f"{label} {key}: scores not finite and descending")
+    return results, launches
+
+
+def same_as_oracle(art, enc, cfg, results, queries, what):
+    """Top-10 against the numpy oracle on the same bf16-rounded bank and
+    query."""
+    bf = dataclasses.replace(
+        art,
+        chunk_emb=torch.from_numpy(art.chunk_emb).bfloat16().float().numpy(),
+    )
+    for i, q in enumerate(queries):
+        pq = preprocess_query(q)
+        qe = torch.from_numpy(enc.encode(pq)).bfloat16().float().numpy()
+        ref = hybrid_search_numpy(
+            bf, pq, qe, cfg.top_k_retrieval, 10, cfg.smoothing,
+            diversification=cfg.diversification,
+        )
+        same_top(results[i], ref, f"{what} vs numpy oracle q{i}")
+
+
+def time_path(eng, batches, label, name, smi):
+    """p50 and queries/s of each batch over 10 calls, host stage means, and
+    one torch.profiler trace of one warm call."""
+    for key, qs in batches.items():
+        B = len(qs)
+        eng.times = StageTimes()
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.search_batch(qs, top_k=10)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        p50 = float(np.median(ts))
+        host = {k: v["mean_ms"] for k, v in eng.times.report().items()}
+        log(f"  {label} search_batch {key}: p50 {p50 * 1e3:.3f} ms, "
+            f"{B / p50:.1f} queries/s on {name} ({smi}); host stage means "
+            f"(ms): {host}")
+        prof = profile_batch(eng, qs)
+        if prof is None:
+            log(f"    torch.profiler, {label} {key}: no device events in the "
+                "trace, device time not measured")
+        else:  # the profiler slows the host, so also hold busy time to p50
+            prof["idle_share_of_p50"] = 1.0 - prof["device_busy_ms"] / (p50 * 1e3)
+            log(f"    torch.profiler, one {label} search_batch {key}: "
+                f"{json.dumps(prof)}")
+
+
+def check_empty_index(cfg, enc):
+    """An empty corpus: no buckets, so the blocked kernel scores one row of
+    pads; every entry point returns []."""
+    eng = SearchEngine(IndexBuilder(enc, cfg).build([]), enc, cfg)
+    check(eng.didx.bm25_layout == "blocked" and not eng.didx.buckets,
+          "empty index: not on the blocked fallback")
+    for k in cuda_lib.KERNELS:
+        k.launches = 0
+    res = eng.search("castle", top_k=5)
+    counts = {k.name: k.launches for k in cuda_lib.KERNELS}
+    check(res == [], f"empty index: search returned {res}")
+    check(counts == {k.name: int(k is BLOCKED_KERNEL) for k in cuda_lib.KERNELS},
+          f"empty index: launches {counts}")
+    check(eng.bm25_search("castle") == [] and eng.dense_search("castle") == [],
+          "empty index: bm25_search / dense_search not empty")
+    log(f"empty index: search, bm25_search, dense_search returned []; "
+        f"launches of search: {counts}")
+
+
+def check_wide_batches(seed, dev):
+    """U = 1152 distinct terms (above the kernels' shared-memory uid table
+    of 1024) and T = 80 term slots (above the shared query table of 64) on
+    kernels 1-3 and 7-8, against their plain versions, on a 12k-doc index
+    (the plain versions' time grows with B x T).  Each kernel is also timed
+    there and on the same queries cut to T = 64 (61 terms, U <= 1024),
+    which take the shared-memory tables."""
+    art, _, _ = make_artifacts(seed, n_docs=12_000, n_terms=3_000,
+                               nnz_target=300_000, avg_chunks=2.0, dim=32)
+    csr = (np.asarray(art.indptr), np.asarray(art.post_docs),
+           np.asarray(art.post_impact), 12_032)
+    vt, vi, stream = pack_slot_classes(*build_slot_postings(*csr)[:2], dev)
+    blk = pack_blocked(*build_blocked_postings(*csr), dev)
+    rng = np.random.default_rng(11)
+    tids = np.stack(
+        [rng.choice(np.arange(1, 3_000), 80, replace=False) for _ in range(17)]
+    ).astype(np.int32)
+    tids[:, -3:] = -1
+    qtf = np.where(tids >= 0, rng.integers(1, 4, tids.shape), 0).astype(
+        np.float32
+    )
+    narrow = np.concatenate([tids[:, :61], np.full((17, 3), -1, np.int32)], 1)
+
+    def cases(tids):
+        q = np.where(tids >= 0, qtf[:, : tids.shape[1]], 0).astype(np.float32)
+        uids, w = dedup_query_terms(tids, q)
+        t, q, u, wt = (torch.as_tensor(x, device=dev)
+                       for x in (tids, q, uids, w))
+        out = {
+            "bm25_slots": (lambda: slots_keyed(stream, vt, vi, t, q),
+                           lambda: slots_plain(vt, vi, t, q)),
+            "bm25_blocked": (lambda: bm25_score_blocked(blk, t, q),
+                             lambda: blocked_plain(blk, t, q)),
+            "bm25_blocked_udedup": (
+                lambda: bm25_score_blocked_udedup(blk, u, wt),
+                lambda: blocked_udedup_plain(blk, u, wt),
+            ),
+        }
+        for v in ("sublane", "i8"):
+            out[UDEDUP_KERNELS[v].name] = (
+                lambda v=v: slots_udedup_keyed(stream, vt, vi, u, wt, v),
+                lambda v=v: slots_udedup_plain(vt, vi, u, wt, v),
+            )
+        return uids.size, int((uids >= 0).sum()), out
+
+    n_u, n_real_u, wide = cases(tids)
+    check(n_u == 1152 and n_real_u > 1024, f"wide batch: U = {n_u}")
+    n_u64, _, small = cases(narrow)
+    check(n_u64 <= 1024, f"T=64 batch: U = {n_u64} takes no shared table")
+    errs, ms = {}, {}
+    for k_name, (kern, plain) in wide.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        excess = ((got - want).abs() - WIDE_RTOL * want.abs()).max().item()
+        check(excess <= BM25_ATOL and torch.equal(got < 0, want < 0),
+              f"{k_name} at U=1152, T=80: off its plain version")
+        check((want >= 0).any().item(), f"{k_name}: nothing matched")
+        errs[k_name] = (got - want).abs().max().item()
+        ms[k_name] = {"T=80 U=1152 (device-memory tables)": cuda_ms(kern, 20),
+                      f"T=64 U={n_u64} (shared-memory tables)":
+                          cuda_ms(small[k_name][0], 20)}
+    log(f"U=1152 (T=80) against the plain versions, max abs err: {errs}")
+    log(f"wide batches, 17 queries on 12,000 docs, kernel ms: {json.dumps(ms)}")
+
+
 def profile_batch(eng, qs):
     """One warm ``search_batch`` under ``torch.profiler``: device busy time
     (the union of the device's kernel, copy and set intervals), the device's
@@ -396,6 +691,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -423,102 +719,111 @@ def main(argv=None) -> int:
     log(f"index: {art.n_docs} docs, {art.n_chunks} chunks, "
         f"{art.post_docs.size} postings, made in {time.time() - t0:.1f} s")
     cfg = Config()  # the default: slots layout, U-dedup, exact top-k
+    cfg_b = cfg.replace(bm25_layout="blocked")
     enc = HashingEncoder(dim=cfg.embedding_dim)
     t0 = time.time()
     eng = SearchEngine(art, enc, cfg)
     torch.cuda.synchronize()
     d = eng.didx
-    log(f"  engine on {eng.device}: built in {time.time() - t0:.1f} s; "
+    log(f"  slot engine on {eng.device}: built in {time.time() - t0:.1f} s; "
         f"{len(d.slot_terms)} stride classes, {len(d.buckets)} buckets, "
         f"{d.slot_stream.terms.numel() * 8 / 1e6:.1f} MB slot postings, "
         f"{sum(e.numel() * 2 for e in d.bucket_emb) / 1e6:.1f} MB bf16 bank, "
         f"{d.resident_bytes() / 1e6:.1f} MB resident")
+    t0 = time.time()
+    eng_b = SearchEngine(art, enc, cfg_b)
+    torch.cuda.synchronize()
+    blk = eng_b.didx.blocked
+    n_real = int(blk.doc_off[:, -1].sum().item())
+    log(f"  blocked engine: built in {time.time() - t0:.1f} s; {blk.n_blocks} "
+        f"rows of {blk.p_blk} slots ({n_real} real, "
+        f"{1 - n_real / blk.terms.numel():.3f} pads), "
+        f"{(blk.terms.numel() * 8 + blk.doc_off.numel() * 4) / 1e6:.1f} MB "
+        f"blocked postings (8 B a slot and the doc offsets), "
+        f"{eng_b.didx.resident_bytes() / 1e6:.1f} MB resident")
 
     log("kernels vs plain versions:")
     rows = check_kernels(eng, dfs, rng)
+    rows.update(check_blocked_kernels(eng_b, eng, dfs, rng))
 
-    # --- phase 5: the main path through the user's entry point ------------
-    batches = {
-        1: query_strings(rng, dfs, words, 1),
-        16: query_strings(rng, dfs, words, 16),
-        64: query_strings(rng, dfs, words, 64, min_distinct=128),
+    # --- phase 5: each path through the user's entry point -----------------
+    slot_batches = {
+        "B=1": query_strings(rng, dfs, words, 1),
+        "B=16": query_strings(rng, dfs, words, 16),
+        "B=64": query_strings(rng, dfs, words, 64, min_distinct=128),
     }
-    # each batch is its own path: counts set to 0 just before, read after
-    want_bm25 = {1: "bm25_slots", 16: "bm25_slots_udedup_sublane",
-                 64: "bm25_slots_udedup_i8"}
-    n_buckets = len(d.buckets)
+    blocked_batches = {
+        "B=1": slot_batches["B=1"],
+        "B=64 shared": shared_batch(rng, dfs, words),
+        "B=64 wide": slot_batches["B=64"],
+    }
+    tids, _, _ = eng_b.prepare_queries(blocked_batches["B=64 shared"])
+    u_pad = u_pad_for(int(np.unique(tids[tids >= 0]).size))
+    check(blocked_udedup_gate(u_pad, *tids.shape),
+          f"shared batch: U={u_pad}, T={tids.shape[1]} misses the U-dedup gate")
+    paths = {
+        "slots": (eng, slot_batches, {
+            "B=1": "bm25_slots", "B=16": "bm25_slots_udedup_sublane",
+            "B=64": "bm25_slots_udedup_i8"}),
+        "blocked": (eng_b, blocked_batches, {
+            "B=1": "bm25_blocked", "B=64 shared": "bm25_blocked_udedup",
+            "B=64 wide": "bm25_blocked"}),
+    }
     results, launches = {}, {}
-    for B, qs in batches.items():
-        for k in cuda_lib.KERNELS:
-            k.launches = 0
-        results[B] = eng.search_batch(qs, top_k=10)
-        launches[B] = {k.name: k.launches for k in cuda_lib.KERNELS}
-        log(f"main path B={B} launches: {launches[B]}")
-        for k_name, n in launches[B].items():
-            want = (1 if k_name == want_bm25[B] else n_buckets
-                    if k_name == "dense_stats" else 0)
-            check(n == want, f"B={B}: {k_name} launched {n} times, not {want}")
-    for B, res in results.items():
-        check(len(res) == B and all(len(r) > 0 for r in res), f"B={B}: empty")
-        for r in res:
-            s = [x.similarity_score for x in r]
-            check(np.all(np.isfinite(s)) and s == sorted(s, reverse=True),
-                  f"B={B}: scores not finite and descending")
+    for label, (e, batches, want_bm25) in paths.items():
+        results[label], launches[label] = drive(e, batches, want_bm25, label)
 
     t0 = time.time()
     cpu = SearchEngine(art, enc, cfg, bank_dtype=torch.bfloat16, device="cpu")
-    for B in (1, 16):
-        want = cpu.search_batch(batches[B], top_k=10)
-        for i, (g, w) in enumerate(zip(results[B], want)):
-            same_top(g, w, f"card vs cpu B={B} q{i}")
-    log(f"  card == cpu engine on the B=1 and B=16 batches "
+    for key in ("B=1", "B=16"):
+        want = cpu.search_batch(slot_batches[key], top_k=10)
+        for i, (g, w) in enumerate(zip(results["slots"][key], want)):
+            same_top(g, w, f"card vs cpu {key} q{i}")
+    log(f"  slot path on the card == cpu engine on the B=1 and B=16 batches "
         f"({time.time() - t0:.1f} s)")
-    # numpy oracle on the same bf16-rounded bank and query
-    bf = dataclasses.replace(
-        art,
-        chunk_emb=torch.from_numpy(art.chunk_emb).bfloat16().float().numpy(),
-    )
-    for i, q in enumerate(batches[16][:3]):
-        pq = preprocess_query(q)
-        qe = torch.from_numpy(enc.encode(pq)).bfloat16().float().numpy()
-        ref = hybrid_search_numpy(
-            bf, pq, qe, cfg.top_k_retrieval, 10, cfg.smoothing,
-            diversification=cfg.diversification,
-        )
-        same_top(results[16][i], ref, f"card vs numpy oracle q{i}")
-    log("  card == numpy oracle on 3 queries")
+    same_as_oracle(art, enc, cfg, results["slots"]["B=16"],
+                   slot_batches["B=16"][:3], "slot path")
+    log("  slot path == numpy oracle on 3 queries")
+    same_batch = {"B=1": "B=1", "B=64 wide": "B=64"}  # keys of slot_batches
+    for key, qs in blocked_batches.items():
+        want = (results["slots"][same_batch[key]] if key in same_batch
+                else eng.search_batch(qs, top_k=10))
+        for i, (g, w) in enumerate(zip(results["blocked"][key], want)):
+            same_top(g, w, f"blocked vs slots {key} q{i}")
+    log("  blocked path == slot path on the card, top-10 of every batch")
+    same_as_oracle(art, enc, cfg_b, results["blocked"]["B=64 shared"],
+                   blocked_batches["B=64 shared"][:3], "blocked path")
+    log("  blocked path == numpy oracle on 3 queries")
+    del cpu
 
-    for B, qs in batches.items():
-        eng.times = StageTimes()
-        ts = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            eng.search_batch(qs, top_k=10)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        p50 = float(np.median(ts))
-        host = {k: v["mean_ms"] for k, v in eng.times.report().items()}
-        log(f"  search_batch B={B}: p50 {p50 * 1e3:.3f} ms, "
-            f"{B / p50:.1f} queries/s on {name} ({smi}); host stage means "
-            f"(ms): {host}")
-        prof = profile_batch(eng, qs)
-        if prof is None:
-            log(f"    torch.profiler, B={B}: no device events in the trace, "
-                "device time not measured")
-        else:  # the profiler slows the host, so also hold busy time to p50
-            prof["idle_share_of_p50"] = 1.0 - prof["device_busy_ms"] / (p50 * 1e3)
-            log(f"    torch.profiler, one search_batch B={B}: {json.dumps(prof)}")
+    for label, (e, batches, _) in paths.items():
+        time_path(e, batches, label, name, smi)
+
+    # --- phase 6: small phases ----------------------------------------------
+    check_empty_index(cfg, enc)
+    check_wide_batches(args.seed, eng.device)
+    eng_ax = SearchEngine(art, enc, cfg.replace(approx_candidates=True))
+    check(eng_ax._approx, "approx_candidates=True did not resolve to True")
+    for key in ("B=16", "B=64"):
+        for a, b in zip(eng_ax.rank_batch(slot_batches[key]),
+                        eng.rank_batch(slot_batches[key])):
+            check(np.array_equal(a, b), f"approx_candidates=True {key}")
+    log("approx_candidates=True: rank_batch equal to the exact engine at "
+        "B=16 and B=64")
+    del eng_ax
 
     out = []
     for k in cuda_lib.KERNELS:
         r = rows[k.name]
+        per_batch = {f"{label} {key}": launches[label][key][k.name]
+                     for label in launches for key in launches[label]}
         out.append({
             "name": k.name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": sum(launches[B][k.name] for B in batches),
-            "launches_per_batch": {B: launches[B][k.name] for B in batches},
+            "launches": sum(per_batch.values()),
+            "launches_per_batch": per_batch,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -526,6 +831,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
+    log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))
     log(smi)
     print(json.dumps({

@@ -43,7 +43,8 @@ class Config:
     # approximate candidate selection (the reference's lax.approx_max_k):
     # "auto" (default) enables it only when the corpus reaches
     # approx_auto_min_docs; True/False pin it.  The port has no
-    # approximate selection yet: a resolved True raises.
+    # approximate selection yet: True runs the exact top-k, which is what
+    # the reference's lax.approx_max_k computes off the TPU.
     approx_candidates: object = "auto"
     # corpus size from which "auto" turns approximate selection on (a
     # threshold fitted on a TPU; not refitted for the GPU)
@@ -53,7 +54,7 @@ class Config:
     # engine._device_rank), "always" = pin the path, False = off.
     bm25_udedup: object = True
     # BM25 posting layout on device: "slots" (doc-slot stride classes) or
-    # "blocked" (doc-major, not ported yet).
+    # "blocked" (doc-major 128-doc blocks; kept for A/B).
     bm25_layout: str = "slots"
     top_k_reranking: int = 100  # stage-2 results
     max_query_terms: int = 16  # term slots per query (term axis cap)

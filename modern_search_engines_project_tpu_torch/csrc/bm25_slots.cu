@@ -27,11 +27,17 @@
 // term ids once, then recover every query's weight from w.  The TPU does
 // that with a (B,U)@(U,COLS) matmul of a 0/1 match matrix; since the real
 // uids are distinct, a posting matches at most one u, so the product is
-// exactly w[b, u*] — found here with a hash table of the uids in shared
-// memory (O(1) probes instead of U compares).  "sublane" converts w to
-// bf16 and "i8" to int8 before use, as the TPU kernels do; both are exact
-// for the small-integer weights dedup_query_terms produces, so the two give
-// identical keyed scores (one templated body).
+// exactly w[b, u*] — found here with a hash table of the uids
+// (uid_table.cuh: O(1) probes instead of U compares).  "sublane" converts w
+// to bf16 and "i8" to int8 before use, as the TPU kernels do; both are
+// exact for the small-integer weights dedup_query_terms produces, so the
+// two give identical keyed scores (one templated body).
+//
+// Any T and any U.  Up to kMaxT query term slots (plain) and up to
+// uid_table::kSmemMaxU distinct ids (U-dedup) are staged in shared memory,
+// as are the U-dedup weights; beyond that the kernels read the query term
+// ids, the weight rows and a hash table built in device memory directly
+// (cached in L1/L2): a weight is read only for a posting that matches.
 //
 // Bound on this card: each posting slot is read once (8 bytes); at the
 // 100k-doc bench shape that is ~69 MB per call by the layout's size, so
@@ -42,51 +48,44 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
-#include <limits.h>
+
+#include "uid_table.cuh"
 
 namespace {
 
 constexpr int kCols = 512;     // doc columns per group (SLOT_COLS)
 constexpr int kQB = 8;         // queries per block (grid.y chunks the batch)
-constexpr int kMaxT = 64;      // query term slots the plain kernel takes
-constexpr int kMaxU = 1024;    // distinct batch terms the U-dedup kernels take
-constexpr int kHashBits = 11;  // 2048-slot table: load factor <= 1/2
-constexpr int kHashSize = 1 << kHashBits;
-constexpr int32_t kEmpty = INT_MIN;
+constexpr int kMaxT = 64;      // query term slots staged in shared memory
+constexpr int kMaxU = uid_table::kSmemMaxU;  // distinct ids staged likewise
 
 __device__ __forceinline__ float keyed(float s, float c) {
   return (c > 0.f && s >= 0.f) ? s : -1.f;
 }
 
-__device__ __forceinline__ uint32_t hash_slot(int32_t key) {
-  return ((uint32_t)key * 2654435761u) >> (32 - kHashBits);
-}
-
+// kSmemQ: the query term ids and weights (T <= kMaxT) are staged in shared
+// memory; otherwise read from device memory.  Pad slots are skipped before
+// the match, so a query pad (-1) never meets a posting pad.
+template <bool kSmemQ>
 __global__ void __launch_bounds__(kCols) slots_kernel(
     const int32_t* __restrict__ terms, const float* __restrict__ impact,
     const int64_t* __restrict__ group_off, const int32_t* __restrict__ group_rows,
     const int32_t* __restrict__ tids, const float* __restrict__ qtf, int B, int T,
     float* __restrict__ out, int64_t ld_out) {
-  __shared__ int32_t s_tid[kQB * kMaxT];
-  __shared__ float s_qtf[kQB * kMaxT];
+  __shared__ int32_t s_tid[kSmemQ ? kQB * kMaxT : 1];
+  __shared__ float s_qtf[kSmemQ ? kQB * kMaxT : 1];
   const int g = blockIdx.x;
   const int col = threadIdx.x;
   const int q0 = blockIdx.y * kQB;
   const int nq = min(kQB, B - q0);
-  for (int i = threadIdx.x; i < kQB * T; i += blockDim.x) {
-    const int q = i / T;
-    int32_t id = -2;
-    float wq = 0.f;
-    if (q < nq) {
-      const int64_t src = (int64_t)(q0 + q) * T + (i - q * T);
-      id = tids[src];
-      wq = qtf[src];
-      if (id < 0) id = -2;  // query pad never collides with posting pad -1
+  if constexpr (kSmemQ) {
+    for (int i = threadIdx.x; i < nq * T; i += blockDim.x) {
+      s_tid[i] = tids[(int64_t)q0 * T + i];
+      s_qtf[i] = qtf[(int64_t)q0 * T + i];
     }
-    s_tid[i] = id;
-    s_qtf[i] = wq;
+    __syncthreads();
   }
-  __syncthreads();
+  const int32_t* q_tid = kSmemQ ? s_tid : tids + (int64_t)q0 * T;
+  const float* q_w = kSmemQ ? s_qtf : qtf + (int64_t)q0 * T;
 
   float acc_s[kQB], acc_c[kQB];
 #pragma unroll
@@ -105,7 +104,7 @@ __global__ void __launch_bounds__(kCols) slots_kernel(
       if (q < nq) {
         float m = 0.f;
         for (int j = 0; j < T; ++j)
-          m += (t == s_tid[q * T + j]) ? s_qtf[q * T + j] : 0.f;
+          m += (t == q_tid[q * T + j]) ? q_w[q * T + j] : 0.f;
         acc_s[q] += m * x;
         acc_c[q] += (m > 0.f) ? 1.f : 0.f;
       }
@@ -135,44 +134,37 @@ __device__ __forceinline__ float weight_value(int8_t w) {
   return (float)(int32_t)w;  // s8 weight x 0/1 match -> s32 -> f32, exact
 }
 
-template <typename W>
+// kSmem: U <= kMaxU, so the uid table and the block's weights live in
+// shared memory; otherwise the table is the one build_global made
+// (g_table, 2^g_bits slots) and weights are read from w as needed.
+template <typename W, bool kSmem>
 __global__ void __launch_bounds__(kCols) slots_udedup_kernel(
     const int32_t* __restrict__ terms, const float* __restrict__ impact,
     const int64_t* __restrict__ group_off, const int32_t* __restrict__ group_rows,
     const int32_t* __restrict__ uids, int U, const float* __restrict__ w, int B,
-    float* __restrict__ out, int64_t ld_out) {
-  __shared__ int32_t s_key[kHashSize];
-  __shared__ int16_t s_slot[kHashSize];
-  __shared__ W s_w[kQB * kMaxU];
+    float* __restrict__ out, int64_t ld_out, const int32_t* __restrict__ g_table,
+    int g_bits) {
+  __shared__ int32_t s_key[kSmem ? uid_table::kSmemSize : 1];
+  __shared__ int32_t s_slot[kSmem ? uid_table::kSmemSize : 1];
+  __shared__ W s_w[kSmem ? kQB * kMaxU : 1];
   const int g = blockIdx.x;
   const int col = threadIdx.x;
   const int q0 = blockIdx.y * kQB;
   const int nq = min(kQB, B - q0);
 
-  for (int i = threadIdx.x; i < kHashSize; i += blockDim.x) s_key[i] = kEmpty;
   // weight rows [0, B) of w; the presence rows [B, 2B) are not read: the
   // presence of a query is derived as (weight > 0)
-  for (int i = threadIdx.x; i < kQB * U; i += blockDim.x) {
-    const int q = i / U;
-    const float v = q < nq ? w[(int64_t)(q0 + q) * U + (i - q * U)] : 0.f;
-    s_w[i] = to_weight<W>(v);
-  }
-  __syncthreads();
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    const int32_t key = uids[u];
-    if (key < 0) continue;  // pad -2 never matches a posting
-    uint32_t h = hash_slot(key);
-    while (true) {
-      const int32_t prev = atomicCAS(&s_key[h], kEmpty, key);
-      if (prev == kEmpty) {
-        s_slot[h] = (int16_t)u;
-        break;
-      }
-      if (prev == key) break;  // real uids are distinct by contract
-      h = (h + 1) & (kHashSize - 1);
+  if constexpr (kSmem) {
+    for (int i = threadIdx.x; i < kQB * U; i += blockDim.x) {
+      const int q = i / U;
+      const float v = q < nq ? w[(int64_t)(q0 + q) * U + (i - q * U)] : 0.f;
+      s_w[i] = to_weight<W>(v);
     }
+    uid_table::build_shared(s_key, s_slot, uids, U);
   }
-  __syncthreads();
+  const int bits = kSmem ? uid_table::kSmemBits : g_bits;
+  const int32_t* keys = kSmem ? s_key : g_table;
+  const int32_t* slots = kSmem ? s_slot : g_table + ((size_t)1 << g_bits);
 
   float acc_s[kQB], acc_c[kQB];
 #pragma unroll
@@ -185,23 +177,17 @@ __global__ void __launch_bounds__(kCols) slots_udedup_kernel(
   for (int r = 0; r < rows; ++r) {
     const int32_t t = __ldg(terms + base + (int64_t)r * kCols);
     if (t < 0) continue;
-    uint32_t h = hash_slot(t);
-    int u = -1;
-    while (true) {
-      const int32_t k = s_key[h];
-      if (k == t) {
-        u = s_slot[h];
-        break;
-      }
-      if (k == kEmpty) break;
-      h = (h + 1) & (kHashSize - 1);
-    }
+    const int u = uid_table::lookup(keys, slots, bits, t);
     if (u < 0) continue;  // no batch term: every query's weight is 0
     const float x = __ldg(impact + base + (int64_t)r * kCols);
 #pragma unroll
     for (int q = 0; q < kQB; ++q) {
       if (q < nq) {
-        const float mw = weight_value(s_w[q * U + u]);
+        float mw;
+        if constexpr (kSmem)
+          mw = weight_value(s_w[q * U + u]);
+        else
+          mw = weight_value(to_weight<W>(w[(int64_t)(q0 + q) * U + u]));
         acc_s[q] += mw * x;
         acc_c[q] += (mw > 0.f) ? 1.f : 0.f;
       }
@@ -217,13 +203,28 @@ __global__ void __launch_bounds__(kCols) slots_udedup_kernel(
 template <typename W>
 int launch_udedup(const void* terms, const void* impact, const void* group_off,
                   const void* group_rows, int n_groups, const void* uids, int U,
-                  const void* w, int B, void* out, int64_t ld_out, void* stream) {
-  if (U < 1 || U > kMaxU) return (int)cudaErrorInvalidValue;
+                  const void* w, int B, void* out, int64_t ld_out, void* table,
+                  int64_t table_len, void* stream) {
+  if (U < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
   dim3 grid(n_groups, (B + kQB - 1) / kQB);
-  slots_udedup_kernel<W><<<grid, kCols, 0, (cudaStream_t)stream>>>(
+  if (U <= kMaxU) {
+    slots_udedup_kernel<W, true><<<grid, kCols, 0, s>>>(
+        (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
+        (const int32_t*)group_rows, (const int32_t*)uids, U, (const float*)w, B,
+        (float*)out, ld_out, nullptr, 0);
+    return (int)cudaGetLastError();
+  }
+  const int bits = uid_table::global_bits(U);
+  if (table == nullptr || table_len < (int64_t)2 << bits)
+    return (int)cudaErrorInvalidValue;
+  const int rc = uid_table::build_global((const int32_t*)uids, U,
+                                         (int32_t*)table, bits, s);
+  if (rc != 0) return rc;
+  slots_udedup_kernel<W, false><<<grid, kCols, 0, s>>>(
       (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
       (const int32_t*)group_rows, (const int32_t*)uids, U, (const float*)w, B,
-      (float*)out, ld_out);
+      (float*)out, ld_out, (const int32_t*)table, bits);
   return (int)cudaGetLastError();
 }
 
@@ -234,30 +235,40 @@ extern "C" int mse_bm25_slots(const void* terms, const void* impact,
                               int n_groups, const void* tids, const void* qtf,
                               int B, int T, void* out, int64_t ld_out,
                               void* stream) {
-  if (T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
+  if (T < 1) return (int)cudaErrorInvalidValue;
   dim3 grid(n_groups, (B + kQB - 1) / kQB);
-  slots_kernel<<<grid, kCols, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
-      (const int32_t*)group_rows, (const int32_t*)tids, (const float*)qtf, B, T,
-      (float*)out, ld_out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (T <= kMaxT)
+    slots_kernel<true><<<grid, kCols, 0, s>>>(
+        (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
+        (const int32_t*)group_rows, (const int32_t*)tids, (const float*)qtf, B,
+        T, (float*)out, ld_out);
+  else
+    slots_kernel<false><<<grid, kCols, 0, s>>>(
+        (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
+        (const int32_t*)group_rows, (const int32_t*)tids, (const float*)qtf, B,
+        T, (float*)out, ld_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mse_bm25_slots_udedup_bf16(
     const void* terms, const void* impact, const void* group_off,
     const void* group_rows, int n_groups, const void* uids, int U,
-    const void* w, int B, void* out, int64_t ld_out, void* stream) {
+    const void* w, int B, void* out, int64_t ld_out, void* table,
+    int64_t table_len, void* stream) {
   return launch_udedup<__nv_bfloat16>(terms, impact, group_off, group_rows,
                                       n_groups, uids, U, w, B, out, ld_out,
-                                      stream);
+                                      table, table_len, stream);
 }
 
 extern "C" int mse_bm25_slots_udedup_i8(
     const void* terms, const void* impact, const void* group_off,
     const void* group_rows, int n_groups, const void* uids, int U,
-    const void* w, int B, void* out, int64_t ld_out, void* stream) {
+    const void* w, int B, void* out, int64_t ld_out, void* table,
+    int64_t table_len, void* stream) {
   return launch_udedup<int8_t>(terms, impact, group_off, group_rows, n_groups,
-                               uids, U, w, B, out, ld_out, stream);
+                               uids, U, w, B, out, ld_out, table, table_len,
+                               stream);
 }
 
 extern "C" const char* mse_cuda_error_string(int code) {

@@ -1,0 +1,110 @@
+// Lookup of a posting's term id among a batch's DISTINCT query term ids
+// ("uids"), shared by the U-dedup kernels of bm25_slots.cu and
+// bm25_blocked.cu.
+//
+// The TPU kernels recover per-query weights with a (B,U)@(U,cols) product
+// of a 0/1 match matrix.  The real uids are distinct, so a posting matches
+// at most one u and that product is exactly w[b, u*]; here u* comes from an
+// open-addressing hash table of the uids (linear probing, load <= 1/2), in
+// any order of the uids:
+//   * U <= kSmemMaxU: every block builds a kSmemSize-slot table in shared
+//     memory (build_shared);
+//   * larger U: build_global fills ONE table of next_pow2(2U) slots in
+//     device memory (scratch the caller allocates) before the scoring
+//     kernel, which probes it through L1/L2.  A few percent of postings
+//     match at the bench shape, and a miss ends at the first empty slot.
+// Keys are the uids, values their positions u; pads (uid < 0) are never
+// inserted, and postings with term < 0 are never looked up.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+namespace uid_table {
+
+constexpr int kSmemBits = 11;
+constexpr int kSmemSize = 1 << kSmemBits;
+constexpr int kSmemMaxU = kSmemSize / 2;  // 1024
+constexpr int32_t kEmpty = -1;            // memset 0xFF; real ids are >= 0
+
+__device__ __forceinline__ uint32_t hash_slot(int32_t key, int bits) {
+  return ((uint32_t)key * 2654435761u) >> (32 - bits);
+}
+
+// Insert key (= uids[u]) with value u; `keys` starts all kEmpty.  Real uids
+// are distinct by contract, so a key already present is left as it is.
+__device__ __forceinline__ void insert(int32_t* keys, int32_t* slots, int bits,
+                                       int32_t key, int u) {
+  const uint32_t mask = (1u << bits) - 1u;
+  uint32_t h = hash_slot(key, bits);
+  while (true) {
+    const int32_t prev = atomicCAS(keys + h, kEmpty, key);
+    if (prev == kEmpty) {
+      slots[h] = u;
+      return;
+    }
+    if (prev == key) return;
+    h = (h + 1u) & mask;
+  }
+}
+
+// u with uids[u] == key, or -1.
+__device__ __forceinline__ int lookup(const int32_t* keys, const int32_t* slots,
+                                      int bits, int32_t key) {
+  const uint32_t mask = (1u << bits) - 1u;
+  uint32_t h = hash_slot(key, bits);
+  while (true) {
+    const int32_t k = keys[h];
+    if (k == key) return slots[h];
+    if (k == kEmpty) return -1;
+    h = (h + 1u) & mask;
+  }
+}
+
+// Block-cooperative build of a kSmemSize table in shared memory (U <=
+// kSmemMaxU).  Every thread of the block must call it; it ends with a
+// barrier.
+__device__ __forceinline__ void build_shared(int32_t* keys, int32_t* slots,
+                                             const int32_t* __restrict__ uids,
+                                             int U) {
+  for (int i = threadIdx.x; i < kSmemSize; i += blockDim.x) keys[i] = kEmpty;
+  __syncthreads();
+  for (int u = threadIdx.x; u < U; u += blockDim.x) {
+    const int32_t key = uids[u];
+    if (key >= 0) insert(keys, slots, kSmemBits, key, u);
+  }
+  __syncthreads();
+}
+
+__global__ void build_global_kernel(const int32_t* __restrict__ uids, int U,
+                                    int32_t* keys, int32_t* slots, int bits) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u < U) {
+    const int32_t key = uids[u];
+    if (key >= 0) insert(keys, slots, bits, key, u);
+  }
+}
+
+// Table bits for U distinct ids in device memory: 2^bits >= 2U.
+inline int global_bits(int U) {
+  int bits = kSmemBits;
+  while ((1 << bits) < 2 * U) ++bits;
+  return bits;
+}
+
+// Fill the device-memory table `table` (2 << bits int32: keys, then values)
+// on `stream`.  Returns 0 or a CUDA error code.
+inline int build_global(const int32_t* uids, int U, int32_t* table, int bits,
+                        cudaStream_t stream) {
+  const size_t n = (size_t)1 << bits;
+  cudaError_t e = cudaMemsetAsync(table, 0xFF, n * sizeof(int32_t), stream);
+  if (e != cudaSuccess) return (int)e;
+  build_global_kernel<<<(U + 255) / 256, 256, 0, stream>>>(uids, U, table,
+                                                           table + n, bits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace uid_table
+}  // namespace

@@ -32,8 +32,8 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     SlotStream,
 )
 
-MAX_T = 64  # query term slots the plain kernel takes (csrc kMaxT)
-MAX_U = 1024  # distinct batch terms the U-dedup kernels take (csrc kMaxU)
+SMEM_MAX_U = 1024  # distinct ids the U-dedup kernels keep in shared memory
+# (csrc/uid_table.cuh kSmemMaxU); above it they need a device-memory table
 
 SLOTS_KERNEL = cuda_lib.register(
     cuda_lib.CudaKernel(
@@ -183,6 +183,25 @@ def slots_udedup_plain(slot_terms, slot_impact, uids, w, variant: str):
 # ---- kernel wrappers --------------------------------------------------------
 
 
+def uid_table_scratch(U: int, device):
+    """Device-memory hash table the U-dedup kernels (2, 3 and 8) fill and
+    probe when U exceeds SMEM_MAX_U: int32 [2 * 2^bits] with 2^bits >= 2U
+    (csrc/uid_table.cuh ``global_bits``); None below that.  The wrapper may
+    drop it right after the launch: PyTorch's caching allocator hands the
+    memory only to work queued later on the same stream."""
+    if U <= SMEM_MAX_U:
+        return None
+    bits = 11
+    while (1 << bits) < 2 * U:
+        bits += 1
+    return torch.empty(2 << bits, dtype=torch.int32, device=device)
+
+
+def table_args(table):
+    """(pointer, length) launcher arguments for ``uid_table_scratch``."""
+    return (0, 0) if table is None else (table.data_ptr(), table.numel())
+
+
 def _check_stream(stream: SlotStream, dev) -> None:
     cuda_lib.check(stream.terms, "slot terms", torch.int32, dev, 1)
     cuda_lib.check(stream.impact, "slot impact", torch.float32, dev, 1)
@@ -201,7 +220,7 @@ def slots_keyed(stream: SlotStream, slot_terms, slot_impact, tids, qtf):
     cuda_lib.check(tids, "tids", torch.int32, dev, 2)
     cuda_lib.check(qtf, "qtf", torch.float32, dev, 2)
     B, T = tids.shape
-    if qtf.shape != tids.shape or not 1 <= T <= MAX_T:
+    if qtf.shape != tids.shape or T < 1:
         raise ValueError(f"tids/qtf {tuple(tids.shape)}/{tuple(qtf.shape)}")
     out = torch.empty(B, stream.n_cols, dtype=torch.float32, device=dev)
     if B and stream.n_groups:
@@ -219,9 +238,9 @@ def slots_udedup_keyed(
     stream: SlotStream, slot_terms, slot_impact, uids, w, variant: str
 ):
     """Kernels 2 ("sublane") and 3 ("i8"): keyed scores [B, n_groups *
-    COLS].  ``uids`` [U] int32 holds distinct real ids (any order) and
-    pads -2, as ``dedup_query_terms`` makes it; ``w`` is [2B, U] f32 with
-    small-integer weights in rows [0, B)."""
+    COLS].  ``uids`` [U] int32 holds distinct real ids (any order, any
+    count) and pads -2, as ``dedup_query_terms`` makes it; ``w`` is
+    [2B, U] f32 with small-integer weights in rows [0, B)."""
     if uids.device.type == "cpu":
         return slots_udedup_plain(slot_terms, slot_impact, uids, w, variant)
     if variant not in UDEDUP_KERNELS:
@@ -232,16 +251,17 @@ def slots_udedup_keyed(
     cuda_lib.check(w, "w", torch.float32, dev, 2)
     U = uids.shape[0]
     B = w.shape[0] // 2
-    if w.shape != (2 * B, U) or not 1 <= U <= MAX_U:
+    if w.shape != (2 * B, U) or U < 1:
         raise ValueError(f"uids/w {tuple(uids.shape)}/{tuple(w.shape)}")
     out = torch.empty(B, stream.n_cols, dtype=torch.float32, device=dev)
     if B and stream.n_groups:
+        table = uid_table_scratch(U, dev)
         UDEDUP_KERNELS[variant].launch(
             dev,
             stream.terms.data_ptr(), stream.impact.data_ptr(),
             stream.group_off.data_ptr(), stream.group_rows.data_ptr(),
             stream.n_groups, uids.data_ptr(), U, w.data_ptr(), B,
-            out.data_ptr(), stream.n_cols,
+            out.data_ptr(), stream.n_cols, *table_args(table),
         )
     return out
 
@@ -278,8 +298,18 @@ def bm25_score_slots(didx, term_ids, qtf) -> torch.Tensor:
     return _slots_key(full, didx.col_unperm, term_ids.shape[0])
 
 
+# the reference's other U-dedup variants, TPU kernels 5 ("acc") and 6
+# ("wide", "wide_i8"): not ported yet
+UNPORTED_VARIANTS = ("acc", "wide", "wide_i8")
+
+
 def bm25_score_slots_udedup(didx, uids, w, variant: str) -> torch.Tensor:
     """Keyed BM25 scores [B, n_docs_pad + 1] through kernel 2 or 3."""
+    if variant in UNPORTED_VARIANTS:
+        raise NotImplementedError(
+            f"U-dedup variant {variant!r} (TPU kernels 5-6) is not ported; "
+            "use 'sublane' or 'i8'"
+        )
     full = slots_udedup_keyed(
         didx.slot_stream, didx.slot_terms, didx.slot_impact, uids, w, variant
     )

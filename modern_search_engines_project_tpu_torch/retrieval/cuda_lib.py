@@ -2,7 +2,8 @@
 
 The sources are ``csrc/*.cu``, each with plain ``extern "C"`` launchers
 (pointers, sizes and a ``cudaStream_t`` in; ``cudaGetLastError()`` out).
-At first use ONE ``nvcc`` call compiles them all for ``sm_90a`` into one
+At first use one ``nvcc -c`` per source, all started together, compiles
+them for ``sm_90a``, and one more ``nvcc`` links the objects into one
 shared library, bound with ``ctypes``; no PyTorch header is compiled, so
 the build takes seconds.  The library lands in
 ``<checkout>/build/torch_kernels/<hash of sources and flags>/`` — a fresh
@@ -28,21 +29,29 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libmse_torch_kernels.so"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # compile, one source a process
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into build.log
 )
+LINK_FLAGS = ("-shared",)
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # launcher symbol -> argtypes (the trailing _P is the stream)
 SIGNATURES = {
     "mse_bm25_slots": [_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64, _P],
     "mse_bm25_slots_udedup_bf16": [
-        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P,
+        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
     ],
     "mse_bm25_slots_udedup_i8": [
-        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P,
+        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
+    ],
+    "mse_bm25_blocked": [
+        _P, _P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P,
+    ],
+    "mse_bm25_blocked_udedup": [
+        _P, _P, _P, _I32, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
+        _I64, _P,
     ],
     "mse_dense_stats": [
         _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
@@ -69,7 +78,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -77,24 +86,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists.
-    Concurrent builders each write a private file and rename it into
-    place, so a reader never sees a partial library."""
+    """Compile ``csrc/*.cu`` into the shared library unless it exists: one
+    ``nvcc -c`` per source, all running at once, then one link.
+    Concurrent builders each write private files and rename the library
+    into place, so a reader never sees a partial library."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{os.getpid()}.{LIB_NAME}")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    tag = f".{os.getpid()}"
+    tmp = so.with_name(f"{tag}.{LIB_NAME}")
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [so.parent / f"{p.stem}{tag}.o" for p in cu]
+    cmds = [
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+        for p, o in zip(cu, objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    logs, ok = [], True
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        ok &= proc.returncode == 0
+    if ok:
+        cmd = [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        ok = proc.returncode == 0
+    log = "\n".join(logs)
+    (so.parent / "build.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if not ok:
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)
     return so
 

@@ -1,11 +1,14 @@
 """SearchEngine: host orchestration around the torch hybrid query path.
 
-Counterpart of the reference package's ``retrieval/engine.py`` for its
-default configuration (``bm25_layout="slots"``, ``bm25_udedup=True``, exact
-top-k): query preprocessing and term lookup on the host, then BM25 through
-one of the three slot kernels, the bucketed dense tail with the stats
-kernel, and host-side dedup, domain diversification and result formatting
-over the (at most) ``top_k_retrieval`` candidates.
+Counterpart of the reference package's ``retrieval/engine.py`` on its
+kernel path: query preprocessing and term lookup on the host, then BM25
+through one of the slot kernels (``bm25_layout="slots"``, the default) or
+the blocked kernels (``bm25_layout="blocked"``, and every index without
+chunk buckets), the bucketed dense tail with the stats kernel (or, without
+buckets, the packed-bank tail), and host-side dedup, domain
+diversification and result formatting over the (at most)
+``top_k_retrieval`` candidates.  ``bm25_search`` and ``dense_search`` run
+one stage alone.
 
 Runs on the card unless the caller passes ``device="cpu"``, where every
 kernel wrapper takes its plain PyTorch version.
@@ -22,6 +25,9 @@ import torch
 from modern_search_engines_project_tpu_torch.config import Config, resolve_approx
 from modern_search_engines_project_tpu_torch.index.builder import IndexArtifacts
 from modern_search_engines_project_tpu_torch.retrieval import ops
+from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
+    blocked_udedup_gate,
+)
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
     dedup_query_terms,
     u_pad_for,
@@ -63,13 +69,15 @@ class SearchEngine:
         self.encoder = encoder
         self.analyzer = analyzer or Analyzer()
         self.didx = DeviceIndex.from_artifacts(
-            artifacts, self.cfg, bank_dtype=bank_dtype, device=device
+            artifacts, self.cfg, bank_dtype=bank_dtype, device=device,
+            bm25_layout=self.cfg.bm25_layout,
         )
         self.device = self.didx.device
         self.k_ret = min(self.cfg.top_k_retrieval, self.didx.n_docs_pad)
         self._approx = resolve_approx(self.cfg, self.didx.n_docs_pad)
         self.times = StageTimes()
-        # results come back in the bucketed (permuted) doc order
+        # results come back in the bucketed (permuted) doc order; an index
+        # without buckets keeps the artifact order (doc_perm None)
         self._result_perm = self.didx.doc_perm
         self._domain_codes = factorize(self.art.domains)
         self._base_codes = factorize(
@@ -119,42 +127,46 @@ class SearchEngine:
     # --- device calls -------------------------------------------------------
 
     def _device_rank(self, term_ids, qtf, qvec):
-        """One batch through the slot path; returns device tensors
-        (doc, fused, bm25_norm, win, valid), each [B, k_ret]."""
+        """One batch through the resident layout's kernels, dispatched as
+        the reference engine dispatches; returns device tensors (doc,
+        fused, bm25_norm, win, valid), each [B, k_ret]."""
         d = self.didx
-        if self.cfg.bm25_layout != "slots":
-            raise NotImplementedError(
-                "bm25_layout='blocked' (kernels _kernel/_kernel_udedup) is "
-                "not ported yet"
-            )
         dev = self.device
         q = torch.as_tensor(qvec, dtype=torch.float32, device=dev)
-        kw = dict(k_ret=self.k_ret, smoothing=self.cfg.smoothing,
-                  approx=self._approx)
+        kw = dict(k_ret=self.k_ret, smoothing=self.cfg.smoothing)
         tids_np = np.asarray(term_ids)
+        B, T = tids_np.shape
+
+        def dense_args():
+            return (
+                torch.as_tensor(tids_np, dtype=torch.int32, device=dev),
+                torch.as_tensor(
+                    np.asarray(qtf), dtype=torch.float32, device=dev
+                ),
+            )
+
+        if not d.buckets:  # no chunk buckets: blocked + packed-bank tail
+            return ops.hybrid_rank_blocked(d, *dense_args(), q, **kw)
+        kw["approx"] = self._approx
+        plan = None
         if self.cfg.bm25_udedup:
-            B = tids_np.shape[0]
             u_pad = u_pad_for(int(np.unique(tids_np[tids_np >= 0]).size))
-            plan = udedup_plan(u_pad, B)
-            if self.cfg.bm25_udedup == "always" and plan is None:
-                plan = "sublane"
-            if plan is not None:
-                uids, w = dedup_query_terms(term_ids, qtf)
-                return ops.hybrid_rank_slots_udedup(
-                    d,
-                    torch.as_tensor(uids, device=dev),
-                    torch.as_tensor(w, device=dev),
-                    q,
-                    variant=plan,
-                    **kw,
-                )
-        return ops.hybrid_rank_slots(
-            d,
-            torch.as_tensor(tids_np, dtype=torch.int32, device=dev),
-            torch.as_tensor(np.asarray(qtf), dtype=torch.float32, device=dev),
-            q,
-            **kw,
-        )
+            if d.bm25_layout == "slots":
+                plan = udedup_plan(u_pad, B)
+                if self.cfg.bm25_udedup == "always" and plan is None:
+                    plan = "sublane"
+            elif blocked_udedup_gate(u_pad, B, T):
+                plan = "blocked"
+        if plan is not None:
+            uids, w = dedup_query_terms(term_ids, qtf)
+            uw = (torch.as_tensor(uids, device=dev),
+                  torch.as_tensor(w, device=dev))
+            if plan == "blocked":
+                return ops.hybrid_rank_buckets_udedup(d, *uw, q, **kw)
+            return ops.hybrid_rank_slots_udedup(d, *uw, q, variant=plan, **kw)
+        if d.bm25_layout == "slots":
+            return ops.hybrid_rank_slots(d, *dense_args(), q, **kw)
+        return ops.hybrid_rank_buckets(d, *dense_args(), q, **kw)
 
     # --- public API ---------------------------------------------------------
 
@@ -165,6 +177,13 @@ class SearchEngine:
         while b < n:
             b *= 2
         return b
+
+    def _to_artifact_order(self, idx, keep):
+        """Permuted doc indices -> artifact doc indices where ``keep``."""
+        perm = self._result_perm
+        if perm is None:
+            return idx
+        return np.where(keep, perm[np.clip(idx, 0, len(perm) - 1)], idx)
 
     @staticmethod
     def _to_host(outs):
@@ -221,8 +240,7 @@ class SearchEngine:
         """Per query: (doc idx, fused score, bm25_norm, window) of the
         selected rows after dedup and diversification."""
         doc, vals, old, win, valid = raw
-        perm = self._result_perm
-        doc = np.where(valid, perm[np.clip(doc, 0, len(perm) - 1)], doc)
+        doc = self._to_artifact_order(doc, valid)
         n_valid = valid.sum(axis=1).tolist()
         n_docs_real = len(self.art.doc_ids)
         for b in range(n_real):
@@ -299,3 +317,101 @@ class SearchEngine:
 
     def search(self, query: str, top_k: Optional[int] = None) -> List[RankedDoc]:
         return self.search_batch([query], top_k=top_k)[0]
+
+    def warmup(self, batch_sizes: Sequence[int] = (1, 64)) -> int:
+        """Run the hot query shapes once before traffic arrives (the
+        reference compiles them; here it builds the kernels and warms the
+        allocator).  One throwaway batch per requested size with a short
+        query (term bucket 4) and a long one (the largest bucket), plus an
+        all-distinct batch that reaches the largest U-dedup bucket.
+        Returns the number of batches run."""
+        # warmup queries need REAL vocab terms: unknown terms are dropped
+        # before term-axis bucketing, and the U-dedup bucket follows the
+        # batch's distinct-term count
+        T = self.cfg.max_query_terms
+        vocab_terms = []
+        for t in self.art.vocab.term_to_id:
+            vocab_terms.append(t)
+            if len(vocab_terms) >= max(batch_sizes, default=1) * T:
+                break
+        long_q = " ".join(vocab_terms[:T]) if vocab_terms else "warmup"
+        calls = 0
+        for b in batch_sizes:
+            b = max(1, int(b))
+            batches = [["warmup"] * b, [long_q] * b]
+            if b > 1 and len(vocab_terms) >= b * T:
+                batches.append(
+                    [
+                        " ".join(vocab_terms[i * T : (i + 1) * T])
+                        for i in range(b)
+                    ]
+                )
+            for qs in batches:
+                self.search_batch(qs, top_k=1)
+                calls += 1
+        return calls
+
+    def dense_search(self, query: str, top_k: int = 100, augment: bool = True):
+        """Exact brute-force dense retrieval (no BM25 candidate filter):
+        per-doc max cosine over every chunk in the bank."""
+        pq = preprocess_query(query) if augment else query
+        d = self.didx
+        q = torch.as_tensor(
+            self.encode_queries([pq]), dtype=torch.float32, device=self.device
+        )
+        k = min(top_k, d.n_docs_pad)
+        if d.buckets:
+            idx, vals, win = ops.dense_rank_buckets(d, q, k=k)
+        else:
+            idx, vals, win = ops.dense_rank(
+                d.chunk_emb, d.chunk_doc, q, n_docs_pad=d.n_docs_pad, k=k
+            )
+        idx, vals, win = self._to_host((idx, vals, win))
+        idx = self._to_artifact_order(idx, np.isfinite(vals))
+        out = []
+        for di, v, w in zip(idx[0], vals[0], win[0]):
+            if not np.isfinite(v) or int(di) >= len(self.art.doc_ids):
+                continue
+            di, w = int(di), int(w)
+            w = w if 0 <= w < len(self.art.window_texts) else 0
+            out.append(
+                RankedDoc(
+                    doc_id=self.art.doc_ids[di],
+                    url=self.art.urls[di],
+                    title=self.art.titles[di],
+                    similarity_score=float(v),
+                    original_similarity=0.0,
+                    window_index=w,
+                    window_text=self.art.window_texts[w],
+                    domain=self.art.domains[di],
+                )
+            )
+        return out[:top_k]
+
+    def bm25_search(self, query: str, top_k: int = 1000, augment: bool = False):
+        """Stage-1-only search through the resident layout's plain BM25
+        kernel (1 or 7).  Returns [{doc_id, score, text_snippet}]."""
+        term_ids, qtf, _ = self.prepare_queries([query], augment=augment)
+        d = self.didx
+        topk = (ops.bm25_topk_slots if d.bm25_layout == "slots"
+                else ops.bm25_topk_blocked)
+        idx, vals = topk(
+            d,
+            torch.as_tensor(term_ids, dtype=torch.int32, device=self.device),
+            torch.as_tensor(qtf, dtype=torch.float32, device=self.device),
+            min(top_k, d.n_docs_pad),
+        )
+        idx, vals = self._to_host((idx, vals))
+        idx = self._to_artifact_order(idx, vals >= 0)
+        results = []
+        for di, v in zip(idx[0], vals[0]):
+            if v < 0:
+                break  # keyed scores: inadmissible candidates are -1
+            results.append(
+                {
+                    "doc_id": self.art.doc_ids[int(di)],
+                    "score": float(v),
+                    "text_snippet": self.art.snippets[int(di)],
+                }
+            )
+        return results

@@ -1,22 +1,30 @@
-"""The hybrid ranking tail over the bucketed layout, in torch.
+"""The hybrid ranking tails, in torch.
 
-Counterpart of the slot-path subset of the reference package's
-``retrieval/ops.py``: BM25 keyed scores (kernels 1-3) -> exact top-k
-candidates -> candidate mask -> per-bucket dense statistics (kernel 4) ->
-pool extrema -> fusion and positional adjustment -> final ranking.  Same
-math and the same tie rules as the reference (``lax.top_k`` order: value
-descending, then index ascending; a stable final re-sort).
+Counterpart of the kernel-path subset of the reference package's
+``retrieval/ops.py``.  Bucketed tail: BM25 keyed scores (slot kernels 1-3
+or blocked kernels 7-8) -> exact top-k candidates -> candidate mask ->
+per-bucket dense statistics (kernel 4) -> pool extrema -> fusion and
+positional adjustment -> final ranking.  No-bucket tail (an index without
+chunk buckets): blocked BM25 -> top-k -> dense sims over the packed bank
+with sorted-segment reductions.  Same math and the same tie rules as the
+reference (``lax.top_k`` order: value descending, then index ascending; a
+stable final re-sort).
 """
 
 from __future__ import annotations
 
 import torch
 
+from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
+    bm25_score_blocked,
+    bm25_score_blocked_udedup,
+)
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
     bm25_score_slots,
     bm25_score_slots_udedup,
 )
 from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
+    bucket_sims,
     bucket_stats,
 )
 
@@ -206,12 +214,13 @@ def _hybrid_tail_buckets(
     """Stages 2+3 over the bucketed layout: candidates from the exact
     top-k of the keyed BM25 scores, one dense pass, fusion, ranking.
     Doc indices are in the PERMUTED order (DeviceIndex.doc_perm maps
-    them back).  Returns (doc, fused, bm25_norm, win, valid), [B, k_ret]."""
-    if approx:
-        raise NotImplementedError(
-            "approximate candidate selection (the reference's "
-            "lax.approx_max_k) has no port yet; use approx_candidates=False"
-        )
+    them back).  Returns (doc, fused, bm25_norm, win, valid), [B, k_ret].
+
+    ``approx=True`` runs the exact selection too: the reference's
+    ``lax.approx_max_k`` is approximate only on a TPU and computes the
+    exact top-k on every other backend, so this is the reference's own
+    answer off the TPU."""
+    del approx
     top_vals, top_idx = topk_blockmax(bm[:, :n_docs_pad], k_ret)
     cand_mask, old_dense, old_norm, valid_c = dense_candidates_from_topk(
         bm, top_vals, n_docs_pad
@@ -225,17 +234,207 @@ def _hybrid_tail_buckets(
     return _rank_candidates(doc_score, win, top_idx, valid_c, old_norm, k_ret)
 
 
+def _segment(reduce: str, data: torch.Tensor, seg: torch.Tensor,
+             num_segments: int, identity) -> torch.Tensor:
+    """Batched segment reduction: data [B, C] -> [B, num_segments] with
+    ``reduce`` "amax" or "amin" along sorted ``seg`` [C]; an empty segment
+    holds ``identity`` (-inf / the int sentinel, as the reference's
+    segment_max and segment_min give)."""
+    B = data.shape[0]
+    out = torch.full((B, num_segments), identity, dtype=data.dtype,
+                     device=data.device)
+    idx = seg.long()[None, :].expand(B, -1)
+    return out.scatter_reduce_(1, idx, data, reduce, include_self=True)
+
+
+def _packed_sims(chunk_emb: torch.Tensor, qvec: torch.Tensor):
+    """[B, C] f32 sims of the bank-dtype query and packed bank (inputs in
+    the bank dtype, f32 sums, as the reference's dot)."""
+    q = qvec.to(chunk_emb.dtype).to(torch.float32)
+    return q @ chunk_emb.to(torch.float32).T
+
+
+def _hybrid_tail(
+    bm, chunk_emb, chunk_doc, doc_chunk_start, doc_n_chunks, qvec, *,
+    n_docs_pad: int, k_ret: int, smoothing: float,
+):
+    """Stages 2+3 over the packed (artifact-order) chunk bank, for an index
+    without buckets.  ``bm`` is keyed scores [B, Dp+1]; returns (doc,
+    fused, bm25_norm, win, valid), each [B, k_ret]."""
+    B = qvec.shape[0]
+    Dp1 = n_docs_pad + 1
+    C = chunk_emb.shape[0]
+    dev = bm.device
+    b_rows = torch.arange(B, device=dev)[:, None]
+
+    top_vals, top_idx = topk_blockmax(bm[:, :n_docs_pad], k_ret)
+    valid_c = top_vals >= 0.0
+
+    # min-max normalize BM25 over the candidate pool
+    inf = float("inf")
+    lo = torch.where(valid_c, top_vals, inf).amin(dim=1, keepdim=True)
+    hi = torch.where(valid_c, top_vals, -inf).amax(dim=1, keepdim=True)
+    denom = hi - lo
+    safe = torch.where(denom > 0, denom, 1.0)
+    old_norm = torch.where(valid_c & (denom > 0), (top_vals - lo) / safe, 0.0)
+
+    # candidate info on the dense doc axis (invalid -> sentinel column)
+    scatter_idx = torch.where(valid_c, top_idx, n_docs_pad).long()
+    cand_mask = torch.zeros(B, Dp1, dtype=torch.bool, device=dev)
+    cand_mask[b_rows, scatter_idx] = True
+    cand_mask[:, n_docs_pad] = False
+    old_dense = torch.zeros(B, Dp1, dtype=torch.float32, device=dev)
+    old_dense[b_rows, scatter_idx] = old_norm
+
+    # ---- stage 2: dense similarity over the whole bank ---------------------
+    sims = _packed_sims(chunk_emb, qvec)  # [B, C]
+    seg = chunk_doc.long()  # sorted ascending (doc-major bank)
+    chunk_mask = cand_mask.index_select(1, seg)
+    lo_c = torch.where(chunk_mask, sims, inf).amin(dim=1, keepdim=True)
+    hi_c = torch.where(chunk_mask, sims, -inf).amax(dim=1, keepdim=True)
+    den_c = hi_c - lo_c
+    new_norm = torch.where(
+        chunk_mask & (den_c > 0),
+        (sims - lo_c) / torch.where(den_c > 0, den_c, 1.0),
+        0.0,
+    )
+
+    # ---- fusion + positional ------------------------------------------------
+    old_chunk = old_dense.index_select(1, seg)
+    fused = torch.where(
+        chunk_mask, new_norm * (1.0 - smoothing) + old_chunk * smoothing, -inf
+    )
+    cidx = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+
+    m1 = _segment("amax", fused, seg, Dp1, -inf)  # best chunk score
+    is_w1 = (fused == m1.index_select(1, seg)) & chunk_mask
+    # first argmax chunk
+    w1 = _segment("amin", torch.where(is_w1, cidx, _BIG), seg, Dp1, _BIG)
+    fused2 = torch.where(cidx == w1.index_select(1, seg), -inf, fused)
+    m2 = _segment("amax", fused2, seg, Dp1, -inf)
+    is_w2 = (fused2 == m2.index_select(1, seg)) & chunk_mask
+    w2 = _segment("amin", torch.where(is_w2, cidx, _BIG), seg, Dp1, _BIG)
+
+    nck = doc_n_chunks[None, :]  # [1, Dp1]
+    pos = w1 - doc_chunk_start[None, :]
+    ratio = pos.to(torch.float32) / torch.clamp(nck - 1, min=1).to(
+        torch.float32
+    )
+    adj = 0.10 - (0.10 + 0.05) * ratio
+    m1_adj = torch.where(nck > 1, torch.clamp(m1 + adj, 0.0, 1.0), m1)
+
+    doc_score = torch.maximum(m1_adj, m2)
+    win = torch.where(m1_adj >= m2, w1, w2)
+    return _rank_candidates(doc_score, win, top_idx, valid_c, old_norm, k_ret)
+
+
+def hybrid_rank_blocked(
+    didx, term_ids, qtf, qvec, *, k_ret: int, smoothing: float = 0.15,
+):
+    """Blocked BM25 through kernel 7 + the packed-bank tail: the engine's
+    path for an index without buckets (an empty corpus).  Doc indices are
+    in artifact order."""
+    bm = bm25_score_blocked(didx.blocked, term_ids, qtf)
+    return _hybrid_tail(
+        bm, didx.chunk_emb, didx.chunk_doc, didx.doc_chunk_start,
+        didx.doc_n_chunks, qvec, n_docs_pad=didx.n_docs_pad, k_ret=k_ret,
+        smoothing=smoothing,
+    )
+
+
+def dense_rank(chunk_emb, chunk_doc, qvec, *, n_docs_pad: int, k: int):
+    """Exact brute-force dense retrieval over the packed bank: per-doc max
+    cosine, top-k.  Returns (doc_idx [B,k], cosine [B,k], win [B,k])."""
+    sims = _packed_sims(chunk_emb, qvec)
+    C = chunk_emb.shape[0]
+    Dp1 = n_docs_pad + 1
+    seg = chunk_doc.long()
+    inf = float("inf")
+    # padded chunks (chunk_doc == sentinel) must not win
+    masked = torch.where((seg < n_docs_pad)[None, :], sims, -inf)
+    m1 = _segment("amax", masked, seg, Dp1, -inf)
+    cidx = torch.arange(C, dtype=torch.int32, device=sims.device)[None, :]
+    is_w = masked == m1.index_select(1, seg)
+    w1 = _segment("amin", torch.where(is_w, cidx, _BIG), seg, Dp1, _BIG)
+    vals, idx = topk_blockmax(m1[:, :n_docs_pad], k)
+    return idx, vals, w1.gather(1, idx.long())
+
+
+def bucket_dense_best(buckets, bucket_emb, bucket_valid, bucket_start, qvec):
+    """Brute-force dense per-doc best over every bucket ->
+    (doc_best [B, sum cnt], win_gid [B, sum cnt]).  Ties pick the lowest
+    slot (``torch.argmax`` returns the first maximum, as ``jnp.argmax``)."""
+    score_parts, win_parts = [], []
+    for emb, dv, bs in zip(bucket_emb, bucket_valid, bucket_start):
+        sims = torch.where(
+            dv[None, None, :], bucket_sims(emb, qvec), float("-inf")
+        )  # (B, n, cnt)
+        score_parts.append(sims.amax(dim=1))
+        slot = torch.argmax(sims, dim=1).to(torch.int32)
+        win_parts.append(bs[None, :] + slot)
+    return torch.cat(score_parts, dim=1), torch.cat(win_parts, dim=1)
+
+
+def dense_rank_buckets(didx, qvec, *, k: int):
+    """dense_rank over the bucketed layout; doc indices in the PERMUTED
+    order (DeviceIndex.doc_perm maps them back)."""
+    doc_best, win = bucket_dense_best(
+        didx.buckets, didx.bucket_emb, didx.bucket_valid, didx.bucket_start,
+        qvec,
+    )
+    n = didx.n_docs_pad
+    doc_best, win = doc_best[:, :n], win[:, :n]
+    vals, idx = topk_blockmax(doc_best, k)
+    return idx, vals, win.gather(1, idx.long())
+
+
+def bm25_topk_slots(didx, term_ids, qtf, k: int):
+    """BM25-only retrieval through slot kernel 1: (idx [B,k], vals [B,k])."""
+    bm = bm25_score_slots(didx, term_ids, qtf)
+    vals, idx = topk_blockmax(bm[:, : didx.n_docs_pad], k)
+    return idx, vals
+
+
+def bm25_topk_blocked(didx, term_ids, qtf, k: int):
+    """BM25-only retrieval through blocked kernel 7."""
+    bm = bm25_score_blocked(didx.blocked, term_ids, qtf)
+    vals, idx = topk_blockmax(bm[:, : didx.n_docs_pad], k)
+    return idx, vals
+
+
+def _tail_of(didx, bm, qvec, k_ret, smoothing, approx):
+    return _hybrid_tail_buckets(
+        bm, didx.bucket_emb, didx.bucket_start, qvec,
+        n_docs_pad=didx.n_docs_pad, k_ret=k_ret, smoothing=smoothing,
+        buckets=didx.buckets, approx=approx,
+    )
+
+
+def hybrid_rank_buckets(
+    didx, term_ids, qtf, qvec, *, k_ret: int, smoothing: float = 0.15,
+    approx: bool = False,
+):
+    """Blocked BM25 through kernel 7 + the bucketed dense tail."""
+    bm = bm25_score_blocked(didx.blocked, term_ids, qtf)
+    return _tail_of(didx, bm, qvec, k_ret, smoothing, approx)
+
+
+def hybrid_rank_buckets_udedup(
+    didx, uids, w, qvec, *, k_ret: int, smoothing: float = 0.15,
+    approx: bool = False,
+):
+    """hybrid_rank_buckets with the U-dedup front end (kernel 8)."""
+    bm = bm25_score_blocked_udedup(didx.blocked, uids, w)
+    return _tail_of(didx, bm, qvec, k_ret, smoothing, approx)
+
+
 def hybrid_rank_slots(
     didx, term_ids, qtf, qvec, *, k_ret: int, smoothing: float = 0.15,
     approx: bool = False,
 ):
     """Slot BM25 through kernel 1 + the bucketed dense tail."""
     bm = bm25_score_slots(didx, term_ids, qtf)
-    return _hybrid_tail_buckets(
-        bm, didx.bucket_emb, didx.bucket_start, qvec,
-        n_docs_pad=didx.n_docs_pad, k_ret=k_ret, smoothing=smoothing,
-        buckets=didx.buckets, approx=approx,
-    )
+    return _tail_of(didx, bm, qvec, k_ret, smoothing, approx)
 
 
 def hybrid_rank_slots_udedup(
@@ -244,8 +443,4 @@ def hybrid_rank_slots_udedup(
 ):
     """hybrid_rank_slots with the U-dedup front end (kernel 2 or 3)."""
     bm = bm25_score_slots_udedup(didx, uids, w, variant)
-    return _hybrid_tail_buckets(
-        bm, didx.bucket_emb, didx.bucket_start, qvec,
-        n_docs_pad=didx.n_docs_pad, k_ret=k_ret, smoothing=smoothing,
-        buckets=didx.buckets, approx=approx,
-    )
+    return _tail_of(didx, bm, qvec, k_ret, smoothing, approx)

@@ -1,7 +1,10 @@
 """Plain versions of the three slot BM25 kernels against the reference's
 Pallas kernels (interpret mode on the CPU), plus the host-side dispatch
-and query prep.  Keyed scores must agree to 1e-5: every path sums at most
-T nonzero f32 products per doc; the integer weights are exact."""
+and query prep, and the wrappers' launch arguments for any U and T.
+Keyed scores must agree to 1e-5: every path sums at most T nonzero f32
+products per doc; the integer weights are exact."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -190,3 +193,67 @@ def test_wrappers_take_plain_versions_on_cpu(built):
     ]
     with pytest.raises(ValueError):
         port.slots_udedup_plain(pi.slot_terms, pi.slot_impact, u, wt, "acc")
+
+
+# ---- launch arguments for any U and any T -----------------------------------
+# A tensor on the "meta" device is neither on the CPU nor real: the wrappers
+# take their kernel branch, and a recording stub stands in for the launch.
+
+
+class Recorder:
+    """Replaces the ``launch`` of each given kernel with a stub that records
+    (kernel name, launcher arguments)."""
+
+    def __init__(self, monkeypatch, *kernels):
+        self.calls = []
+        for k in kernels:
+            monkeypatch.setattr(k, "launch", self._launch(k.name))
+
+    def _launch(self, name):
+        def launch(device, *args):
+            self.calls.append((name, args))
+        return launch
+
+
+def meta(x):
+    return torch.as_tensor(x).to("meta")
+
+
+def wide_batch():
+    """17 queries of 80 distinct terms out of 3000: T = 80, U = 1152."""
+    rng = np.random.default_rng(11)
+    tids = np.stack(
+        [rng.choice(3000, 80, replace=False) for _ in range(17)]
+    ).astype(np.int32)
+    qtf = np.ones(tids.shape, np.float32)
+    uids, w = port.dedup_query_terms(tids, qtf)
+    return tids, qtf, uids, w
+
+
+def test_slot_wrappers_pass_any_u_and_any_t(built, monkeypatch):
+    """Kernels 1-3 take T = 80 and U = 1152 (their shared-memory tables
+    hold 64 and 1024); above 1024 the U-dedup kernels get a device-memory
+    uid table of 2 * 4096 int32 (2^12 >= 2U, csrc/uid_table.cuh), below
+    it none."""
+    _, _, pi = built
+    stream = dataclasses.replace(
+        pi.slot_stream,
+        **{f: meta(getattr(pi.slot_stream, f))
+           for f in ("terms", "impact", "group_off", "group_rows")},
+    )
+    views = (pi.slot_terms, pi.slot_impact)
+    rec = Recorder(monkeypatch, port.SLOTS_KERNEL, *port.UDEDUP_KERNELS.values())
+    tids, qtf, uids, w = wide_batch()
+    assert uids.size == 1152
+    out = port.slots_keyed(stream, *views, meta(tids), meta(qtf))
+    assert out.shape == (17, stream.n_cols)
+    assert rec.calls[-1][0] == "bm25_slots"
+    assert rec.calls[-1][1][7:9] == (17, 80)
+    for variant in ("sublane", "i8"):
+        port.slots_udedup_keyed(stream, *views, meta(uids), meta(w), variant)
+        name, args = rec.calls[-1]
+        assert name == f"bm25_slots_udedup_{variant}" and args[6] == 1152
+        assert args[-1] == 2 * 4096
+    small_u, small_w = port.dedup_query_terms(tids[:1, :8], qtf[:1, :8])
+    port.slots_udedup_keyed(stream, *views, meta(small_u), meta(small_w), "i8")
+    assert rec.calls[-1][1][-2:] == (0, 0)

@@ -9,7 +9,9 @@ where no CUDA device is present.  On a machine with an H100:
 does not need.)  Inputs are made with numpy from fixed seeds.
 
 Tolerances: the BM25 kernels sum at most T nonzero f32 products per doc in
-another order than the plain version, so keyed scores agree to 1e-5.  The
+another order than the plain version, so keyed scores agree to 1e-5; the
+blocked kernels sum in the slot kernels' order, so the two layouts agree
+to 1e-5 too.  The
 stats kernel and its plain version read the same bf16 bank and query and
 sum 768 f32 products in different orders; sims agree to ~1e-6, checked at
 1e-4 (slots are compared by the sim they point at, since near-equal sims
@@ -24,14 +26,25 @@ from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import Document, IndexBuilder
 from modern_search_engines_project_tpu_torch.models import HashingEncoder
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
+from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
+    BLOCKED_KERNEL,
+    BLOCKED_UDEDUP_KERNEL,
+    blocked_plain,
+    blocked_udedup_plain,
+    blocked_udedup_gate,
+    bm25_score_blocked,
+    bm25_score_blocked_udedup,
+)
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
     SLOTS_KERNEL,
     UDEDUP_KERNELS,
+    _slots_key,
     dedup_query_terms,
     slots_keyed,
     slots_plain,
     slots_udedup_keyed,
     slots_udedup_plain,
+    u_pad_for,
 )
 from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
     STATS_KERNEL,
@@ -41,7 +54,9 @@ from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
     stats_plain,
 )
 from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+    build_blocked_postings,
     build_slot_postings,
+    pack_blocked,
     pack_slot_classes,
 )
 from modern_search_engines_project_tpu_torch.retrieval.engine import SearchEngine
@@ -60,7 +75,7 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _random_slots(seed, n_docs=3000, n_terms=400, nnz=60000):
+def _random_csr(seed, n_docs=3000, n_terms=400, nnz=60000):
     rng = np.random.default_rng(seed)
     dfs = np.maximum((1.0 / np.arange(1, n_terms + 1)) ** 0.7 * nnz / 9, 1)
     dfs = np.minimum(dfs.astype(np.int64), n_docs)
@@ -75,7 +90,12 @@ def _random_slots(seed, n_docs=3000, n_terms=400, nnz=60000):
     impact[::97] = 0.0  # matched with score 0 stays admissible
     impact[::89] *= -1  # negative scores key to -1
     n_docs_pad = -(-n_docs // 128) * 128
-    st, si, _ = build_slot_postings(indptr, docs, impact, n_docs_pad)
+    return (indptr, docs, impact, n_docs_pad), n_terms, rng
+
+
+def _random_slots(seed, **kw):
+    csr, n_terms, rng = _random_csr(seed, **kw)
+    st, si, _ = build_slot_postings(*csr)
     return st, si, n_terms, rng
 
 
@@ -84,6 +104,17 @@ def slots(cuda):
     st, si, n_terms, rng = _random_slots(0)
     views_t, views_i, stream = pack_slot_classes(st, si, cuda)
     return views_t, views_i, stream, n_terms, rng
+
+
+@pytest.fixture(scope="module")
+def both_layouts(cuda):
+    """One random corpus (12k docs, 300k postings) in both layouts."""
+    csr, n_terms, rng = _random_csr(7, n_docs=12000, n_terms=3000, nnz=300000)
+    st, si, col_unperm = build_slot_postings(*csr)
+    views_t, views_i, stream = pack_slot_classes(st, si, cuda)
+    blk = pack_blocked(*build_blocked_postings(*csr), cuda)
+    cu = torch.as_tensor(col_unperm, device=cuda)
+    return (views_t, views_i, stream, cu), blk, n_terms, rng
 
 
 def _queries(rng, B, T, n_terms):
@@ -163,6 +194,141 @@ def test_stats_kernel_matches_plain(cuda, n, cnt, B, dim):
     assert stats_max_abs_err(got, want, bucket_sims(emb, q)) <= STATS_ATOL
 
 
+@pytest.mark.parametrize("B,T", [(1, 4), (1, 8), (16, 8), (40, 16), (64, 8)])
+def test_blocked_kernel_matches_plain_and_slots(both_layouts, cuda, B, T):
+    (vt, vi, stream, cu), blk, n_terms, rng = both_layouts
+    tids, qtf = _queries(rng, B, T, n_terms)
+    t = torch.as_tensor(tids, device=cuda)
+    q = torch.as_tensor(qtf, device=cuda)
+    before = BLOCKED_KERNEL.launches
+    got = bm25_score_blocked(blk, t, q)
+    torch.cuda.synchronize()
+    assert BLOCKED_KERNEL.launches == before + 1
+    want = blocked_plain(blk, t, q)
+    torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+    slot = _slots_key(slots_keyed(stream, vt, vi, t, q), cu, B)
+    torch.testing.assert_close(got, slot, atol=BM25_ATOL, rtol=0)
+    assert torch.equal(got < 0, slot < 0)
+    assert (got >= 0).any() and (got == -1).any()
+
+
+@pytest.mark.parametrize("B,T", [(8, 4), (16, 8), (40, 16), (64, 16)])
+def test_blocked_udedup_kernel_matches_plain(both_layouts, cuda, B, T):
+    (vt, vi, stream, cu), blk, n_terms, rng = both_layouts
+    tids, qtf = _queries(rng, B, T, n_terms)
+    uids, w = dedup_query_terms(tids, qtf)
+    u = torch.as_tensor(uids, device=cuda)
+    wt = torch.as_tensor(w, device=cuda)
+    before = BLOCKED_UDEDUP_KERNEL.launches
+    got = bm25_score_blocked_udedup(blk, u, wt)
+    torch.cuda.synchronize()
+    assert BLOCKED_UDEDUP_KERNEL.launches == before + 1
+    want = blocked_udedup_plain(blk, u, wt)
+    torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+    plain = bm25_score_blocked(
+        blk, torch.as_tensor(tids, device=cuda),
+        torch.as_tensor(qtf, device=cuda),
+    )
+    torch.testing.assert_close(got, plain, atol=BM25_ATOL, rtol=0)
+
+
+def _presence_apart(w, seed):
+    """A copy of w whose presence rows [B, 2B) differ from weight > 0 (as
+    in test_torch_bm25_blocked, which imports jax, so it is not shared)."""
+    w = w.copy()
+    B = w.shape[0] // 2
+    rng = np.random.default_rng(seed)
+    pairs = np.argwhere(w[:B] > 0)
+    pick = pairs[rng.random(len(pairs)) < 0.3]
+    w[B + pick[:, 0], pick[:, 1]] = 0.0  # weighted, not present
+    free = np.argwhere((w[:B] == 0) & (w[B:] == 0))
+    pick = free[rng.random(len(free)) < 0.05]
+    w[B + pick[:, 0], pick[:, 1]] = 1.0  # present with weight 0
+    return w
+
+
+def test_blocked_udedup_kernel_reads_presence_rows(both_layouts, cuda):
+    """Presence rows [B, 2B) of w that differ from weight > 0: the kernel
+    follows them as its plain version (and the TPU kernel) does."""
+    _, blk, n_terms, rng = both_layouts
+    tids, qtf = _queries(rng, 16, 8, n_terms)
+    uids, w = dedup_query_terms(tids, qtf)
+    u = torch.as_tensor(uids, device=cuda)
+    wt = torch.as_tensor(_presence_apart(w, 5), device=cuda)
+    got = bm25_score_blocked_udedup(blk, u, wt)
+    want = blocked_udedup_plain(blk, u, wt)
+    torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+    assert torch.equal(got < 0, want < 0)
+    base = bm25_score_blocked_udedup(blk, u, torch.as_tensor(w, device=cuda))
+    assert not torch.equal(got < 0, base < 0)
+
+
+def test_blocked_udedup_takes_unsorted_uids(both_layouts, cuda):
+    _, blk, n_terms, rng = both_layouts
+    tids, qtf = _queries(rng, 16, 8, n_terms)
+    uids, w = dedup_query_terms(tids, qtf)
+    perm = rng.permutation(uids.size)
+    u = torch.as_tensor(uids[perm], device=cuda)
+    wt = torch.as_tensor(np.ascontiguousarray(w[:, perm]), device=cuda)
+    got = bm25_score_blocked_udedup(blk, u, wt)
+    want = blocked_udedup_plain(blk, u, wt)
+    torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+
+
+def _wide_queries(rng, B, T, n_terms):
+    """B queries of T distinct real terms each, spread over the vocabulary
+    so the batch holds more than 1024 distinct ids."""
+    tids = np.stack(
+        [rng.choice(n_terms, T, replace=False) for _ in range(B)]
+    ).astype(np.int32)
+    tids[:, -3:] = -1  # a few pads too
+    qtf = np.where(tids >= 0, rng.integers(1, 4, tids.shape), 0)
+    return tids, qtf.astype(np.float32)
+
+
+WIDE_TOL = dict(atol=BM25_ATOL, rtol=1e-6)
+
+
+def test_any_u_and_any_t(both_layouts, cuda):
+    """U = 1152 distinct ids (above the shared-memory table) on kernels 2,
+    3 and 8, and T = 80 term slots (above the shared-memory query table)
+    on kernels 1 and 7, each against its plain version.  With 77 terms a
+    query a doc sums up to 77 matched products and scores reach ~100,
+    where one f32 ulp is 7.6e-6: sums taken in another order differ by a
+    few ulps, hence rtol 1e-6 beside the 1e-5 of the other tests."""
+    (vt, vi, stream, cu), blk, n_terms, _ = both_layouts
+    tids, qtf = _wide_queries(np.random.default_rng(11), 17, 80, n_terms)
+    uids, w = dedup_query_terms(tids, qtf)
+    real = int((uids >= 0).sum())
+    assert uids.size == 1152 and real > 1024
+    t = torch.as_tensor(tids, device=cuda)
+    q = torch.as_tensor(qtf, device=cuda)
+    u = torch.as_tensor(uids, device=cuda)
+    wt = torch.as_tensor(w, device=cuda)
+    base = slots_plain(vt, vi, t, q)
+    torch.testing.assert_close(
+        slots_keyed(stream, vt, vi, t, q), base, **WIDE_TOL
+    )
+    for variant in ("sublane", "i8"):
+        got = slots_udedup_keyed(stream, vt, vi, u, wt, variant)
+        torch.testing.assert_close(
+            got, slots_udedup_plain(vt, vi, u, wt, variant),
+            **WIDE_TOL,
+        )
+        torch.testing.assert_close(got, base, **WIDE_TOL)
+    bplain = blocked_plain(blk, t, q)
+    torch.testing.assert_close(
+        bm25_score_blocked(blk, t, q), bplain, **WIDE_TOL
+    )
+    got8 = bm25_score_blocked_udedup(blk, u, wt)
+    torch.testing.assert_close(
+        got8, blocked_udedup_plain(blk, u, wt),
+        **WIDE_TOL,
+    )
+    torch.testing.assert_close(got8, bplain, **WIDE_TOL)
+    assert (bplain >= 0).any()
+
+
 def test_wrappers_refuse_wrong_inputs(slots, cuda):
     views_t, views_i, stream, n_terms, _ = slots
     tids = torch.zeros(2, 4, dtype=torch.int64, device=cuda)
@@ -191,23 +357,55 @@ def _docs(seed, n=300):
     return docs, words
 
 
+def _same_results(got, want):
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            assert abs(a.similarity_score - b.similarity_score) < 1e-3
+
+
 def test_engine_on_card_matches_cpu(cuda):
+    """Both layouts on the card against the CPU engine (same bf16 bank):
+    the slot engine at B = 1, 16, 64; the blocked engine at B = 1 (kernel
+    7) and at B = 64 queries sharing few terms (kernel 8)."""
     docs, words = _docs(1)
     cfg = Config(embedding_dim=64, window_size=64, step_size=50,
                  top_k_retrieval=200, top_k_reranking=10)
     enc = HashingEncoder(dim=64)
     art = IndexBuilder(enc, cfg).build(docs)
-    gpu = SearchEngine(art, enc, cfg)
-    cpu = SearchEngine(art, enc, cfg, bank_dtype=torch.bfloat16, device="cpu")
     rng = np.random.default_rng(2)
     counts = {k.name: k.launches for k in cuda_lib.KERNELS}
-    for B in (1, 16, 64):
-        qs = [" ".join(rng.choice(words, 4)) for _ in range(B)]
-        got, want = gpu.search_batch(qs, top_k=10), cpu.search_batch(qs, top_k=10)
-        for g, w in zip(got, want):
-            assert len(g) == len(w)
-            for a, b in zip(g, w):
-                assert abs(a.similarity_score - b.similarity_score) < 1e-3
+    batches = {
+        "slots": [[" ".join(rng.choice(words, 4)) for _ in range(B)]
+                  for B in (1, 16, 64)],
+        "blocked": [[" ".join(rng.choice(words, 4))],
+                    [" ".join(rng.choice(words[:40], 5, replace=False))
+                     for _ in range(64)]],
+    }
+    for layout, qss in batches.items():
+        c = cfg.replace(bm25_layout=layout)
+        gpu = SearchEngine(art, enc, c)
+        cpu = SearchEngine(art, enc, c, bank_dtype=torch.bfloat16, device="cpu")
+        for qs in qss:
+            _same_results(gpu.search_batch(qs, top_k=10),
+                          cpu.search_batch(qs, top_k=10))
+    tids, _, _ = gpu.prepare_queries(batches["blocked"][1])
+    B, T = tids.shape
+    assert blocked_udedup_gate(u_pad_for(len(np.unique(tids[tids >= 0]))), B, T)
     for k in cuda_lib.KERNELS:
         assert k.launches > counts[k.name], k.name
     assert UDEDUP_KERNELS["sublane"].launches > counts["bm25_slots_udedup_sublane"]
+
+
+def test_empty_index_on_card(cuda):
+    """An empty index serves on the blocked fallback: kernel 7 runs over
+    one block of pads and every entry point returns []."""
+    cfg = Config(embedding_dim=32, window_size=16, step_size=12,
+                 top_k_retrieval=10, top_k_reranking=5, max_query_terms=8)
+    enc = HashingEncoder(dim=32)
+    eng = SearchEngine(IndexBuilder(enc, cfg).build([]), enc, cfg)
+    before = BLOCKED_KERNEL.launches
+    assert eng.search("castle", top_k=5) == []
+    assert eng.bm25_search("castle") == []
+    assert eng.dense_search("castle", top_k=5) == []
+    assert BLOCKED_KERNEL.launches == before + 2

@@ -1,9 +1,11 @@
 """The torch port's index layouts equal the reference package's.
 
-Both packages build from the same IndexArtifacts; every slot, bucket and
-permutation array of the port's DeviceIndex must equal the reference
-DeviceIndex field bit for bit, and device_index_from_numpy must carry the
-reference's arrays across unchanged.  JAX stays on the CPU; data crosses
+Both packages build from the same IndexArtifacts; every slot, blocked,
+bucket, packed and permutation array of the port's DeviceIndex must equal
+the reference DeviceIndex field bit for bit (the blocked layout's doc
+permutation too: top-k ties break by permuted index), and
+device_index_from_numpy must carry the reference's arrays across
+unchanged.  JAX stays on the CPU; data crosses
 as numpy.
 """
 
@@ -20,6 +22,7 @@ from modern_search_engines_project_tpu.index import IndexBuilder as RefBuilder
 from modern_search_engines_project_tpu.models import HashingEncoder as RefEncoder
 from modern_search_engines_project_tpu.retrieval.device_index import (
     DeviceIndex as RefIndex,
+    balance_by_load as ref_balance_by_load,
 )
 from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import IndexBuilder
@@ -27,6 +30,7 @@ from modern_search_engines_project_tpu_torch.models import HashingEncoder
 from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     SLOT_COLS,
     DeviceIndex,
+    balance_by_load,
     build_index_fields,
     device_index_from_numpy,
     resolve_device,
@@ -40,12 +44,36 @@ CORPORA = {
 }
 
 
+def local_ids(blk) -> torch.Tensor:
+    """The per-slot local doc ids [n_blocks, p_blk] that a BlockedPostings'
+    doc offsets encode (doc j of row i over its run, pads 0), as the
+    reference's ``blk_local`` holds them."""
+    off = blk.doc_off.numpy()
+    out = np.zeros((blk.n_blocks, blk.p_blk), np.int32)
+    for i in range(blk.n_blocks):
+        out[i, : off[i, -1]] = np.repeat(np.arange(128), np.diff(off[i]))
+    return torch.from_numpy(out)
+
+
 def ref_fields(ri) -> dict:
-    """The reference DeviceIndex's slot-path arrays as numpy."""
+    """The reference DeviceIndex's arrays as numpy: the slot layout when it
+    has one, else the blocked one; the packed chunk arrays when it has no
+    buckets."""
+    if ri.slot_terms is not None:
+        bm25 = {
+            "slot_terms": tuple(np.asarray(t) for t in ri.slot_terms),
+            "slot_impact": tuple(np.asarray(t) for t in ri.slot_impact),
+            "col_unperm": np.asarray(ri.col_unperm),
+        }
+    else:
+        bm25 = {k: np.asarray(getattr(ri, k))
+                for k in ("blk_terms", "blk_impact", "blk_local")}
+    if not ri.buckets:
+        bm25["chunk_emb"] = np.asarray(ri.chunk_emb, np.float32)
+        for k in ("chunk_doc", "doc_chunk_start", "doc_n_chunks"):
+            bm25[k] = np.asarray(getattr(ri, k))
     return {
-        "slot_terms": tuple(np.asarray(t) for t in ri.slot_terms),
-        "slot_impact": tuple(np.asarray(t) for t in ri.slot_impact),
-        "col_unperm": np.asarray(ri.col_unperm),
+        **bm25,
         "buckets": ri.buckets,
         "bucket_emb": tuple(np.asarray(e, np.float32) for e in ri.bucket_emb),
         "bucket_valid": tuple(np.asarray(v) for v in ri.bucket_valid),
@@ -191,12 +219,131 @@ def test_bf16_bank_matches_reference_rounding():
 
 
 def test_index_without_chunks_is_refused():
+    """An index without chunk embeddings has no buckets, so the slot layout
+    is refused for it: it is built on the blocked layout with the packed
+    chunk arrays, in artifact doc order, equal to the reference's."""
     art = RefBuilder(RefEncoder(dim=32), RefConfig(**CFG)).build(
         make_corpus(20, seed=1)
     )
-    empty = dataclasses.replace(art, chunk_emb=np.zeros((0, 32), np.float32))
-    with pytest.raises(NotImplementedError):
-        build_index_fields(empty, Config(**CFG))
+    empty = dataclasses.replace(
+        art,
+        chunk_emb=np.zeros((0, 32), np.float32),
+        chunk_doc=np.zeros(0, np.int32),
+        doc_chunk_start=np.zeros(art.n_docs, np.int32),
+        doc_n_chunks=np.zeros(art.n_docs, np.int32),
+    )
+    f = build_index_fields(empty, Config(**CFG))
+    assert f.get("slot_terms") is None and f["doc_perm"] is None
+    assert f["buckets"] == ()
+    ri = RefIndex.from_artifacts(
+        empty, RefConfig(**CFG), build_unused_layout=False
+    )
+    assert ri.slot_terms is None
+    want = ref_fields(ri)
+    for k in ("blk_terms", "blk_impact", "blk_local", "chunk_emb",
+              "chunk_doc", "doc_chunk_start", "doc_n_chunks"):
+        np.testing.assert_array_equal(f[k], want[k], err_msg=k)
+    pi = device_index_from_numpy(f, "cpu")
+    assert pi.bm25_layout == "blocked" and pi.slot_stream is None
+
+
+def test_empty_corpus_index_matches_reference():
+    art = RefBuilder(RefEncoder(dim=32), RefConfig(**CFG)).build([])
+    ri = RefIndex.from_artifacts(art, RefConfig(**CFG), build_unused_layout=False)
+    pi = DeviceIndex.from_artifacts(art, Config(**CFG), device="cpu")
+    want = ref_fields(ri)
+    b = pi.blocked
+    for got, k in ((b.terms, "blk_terms"), (b.impact, "blk_impact"),
+                   (local_ids(b), "blk_local"), (pi.chunk_emb, "chunk_emb"),
+                   (pi.chunk_doc, "chunk_doc"),
+                   (pi.doc_chunk_start, "doc_chunk_start"),
+                   (pi.doc_n_chunks, "doc_n_chunks")):
+        np.testing.assert_array_equal(got.numpy(), want[k], err_msg=k)
+    assert pi.n_docs_pad == ri.n_docs_pad == 128 and pi.doc_perm is None
+    assert int(b.doc_off.sum()) == 0 and pi.resident_bytes() > 0
+
+
+@pytest.mark.parametrize("n", [0, 5, 128, 129, 300, 1000])
+def test_balance_by_load_matches_reference(n):
+    rng = np.random.default_rng(n)
+    load = rng.integers(0, 50, 2000)
+    load[::7] = 10  # ties: the stable sort keeps them in index order
+    idxs = rng.permutation(2000)[:n]
+    got = balance_by_load(idxs, load, 128)
+    np.testing.assert_array_equal(got, ref_balance_by_load(idxs, load, 128))
+    assert sorted(got.tolist()) == sorted(idxs.tolist())
+
+
+@pytest.fixture(scope="module", params=sorted(CORPORA))
+def built_blocked(request):
+    docs = make_corpus(**CORPORA[request.param])
+    art = RefBuilder(RefEncoder(dim=32), RefConfig(**CFG)).build(docs)
+    ri = RefIndex.from_artifacts(
+        art, RefConfig(**CFG), bm25_layout="blocked", build_unused_layout=False
+    )
+    pi = DeviceIndex.from_artifacts(
+        art, Config(**CFG), device="cpu", bm25_layout="blocked"
+    )
+    return art, ri, pi
+
+
+def test_blocked_layout_matches_reference(built_blocked):
+    """doc_perm (balance_by_load inside each bucket) and the blk_* arrays
+    equal the reference's; only the blocked layout is resident."""
+    _, ri, pi = built_blocked
+    assert ri.slot_terms is None and pi.slot_stream is None
+    assert pi.bm25_layout == "blocked" and pi.col_unperm is None
+    np.testing.assert_array_equal(pi.doc_perm, ri.doc_perm)
+    for got, name in ((pi.blocked.terms, "blk_terms"),
+                      (pi.blocked.impact, "blk_impact"),
+                      (local_ids(pi.blocked), "blk_local")):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(ri, name)))
+    assert pi.buckets == ri.buckets
+    for a, b in zip(pi.bucket_emb, ri.bucket_emb):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for f in ("n_docs", "n_docs_pad", "n_chunks_pad", "n_terms", "nnz"):
+        assert getattr(pi, f) == getattr(ri, f), f
+    assert pi.chunk_emb is None  # the bucketed tail needs no packed bank
+
+
+def test_blocked_permutation_differs_from_slots(built_blocked):
+    """Each layout orders docs inside a bucket its own way."""
+    art, _, pi = built_blocked
+    slots = DeviceIndex.from_artifacts(art, Config(**CFG), device="cpu")
+    assert sorted(slots.doc_perm.tolist()) == sorted(pi.doc_perm.tolist())
+    if art.n_docs > 128:
+        assert not np.array_equal(slots.doc_perm, pi.doc_perm)
+
+
+def test_blocked_from_numpy_round_trips(built_blocked):
+    """The reference's blocked arrays carried across give the port's own
+    index, doc offsets included."""
+    _, ri, pi = built_blocked
+    got = device_index_from_numpy(ref_fields(ri), "cpu")
+    for name in ("terms", "impact", "doc_off"):
+        assert torch.equal(getattr(got.blocked, name),
+                           getattr(pi.blocked, name)), name
+    np.testing.assert_array_equal(got.doc_perm, pi.doc_perm)
+    assert got.resident_bytes() == pi.resident_bytes()
+
+
+def test_blocked_doc_offsets_cover_every_posting(built_blocked):
+    """Row i's doc runs hold every real posting once, in doc order; the
+    per-doc impact sums equal the artifact's."""
+    art, _, pi = built_blocked
+    b = pi.blocked
+    off = b.doc_off.numpy()
+    assert int(off[:, -1].sum()) == art.post_docs.shape[0]
+    sums = np.zeros(pi.n_docs_pad)
+    imp = b.impact.numpy()
+    for i in range(b.n_blocks):
+        for j in range(128):
+            sums[i * 128 + j] = imp[i, off[i, j]:off[i, j + 1]].sum()
+    want = np.zeros(art.n_docs)
+    np.add.at(want, art.post_docs, art.post_impact)
+    real = pi.doc_perm >= 0
+    np.testing.assert_allclose(sums[real], want[pi.doc_perm[real]], atol=1e-4)
+    assert np.all(sums[~real] == 0)
 
 
 def test_no_card_raises_unless_cpu_is_asked(monkeypatch):

@@ -24,8 +24,9 @@ from modern_search_engines_project_tpu_torch.retrieval import (
     hybrid_search_numpy,
     preprocess_query,
 )
-from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
+from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
+    dedup_query_terms,
     u_pad_for,
     udedup_plan,
 )
@@ -184,26 +185,37 @@ def test_scores_sorted_and_edge_queries(built):
 
 
 def test_cpu_run_launches_no_kernel(built):
-    _, eng, _ = built
+    art, eng, _ = built
+    blocked = SearchEngine(art, HashingEncoder(dim=64),
+                           Config(**CFG).replace(bm25_layout="blocked"),
+                           device="cpu")
     before = [k.launches for k in cuda_lib.KERNELS]
     eng.search_batch(BATCHES["sublane"], top_k=5)
+    blocked.search_batch(BATCHES["sublane"], top_k=5)
     assert [k.launches for k in cuda_lib.KERNELS] == before
-    assert len(cuda_lib.KERNELS) == 4
+    assert len(cuda_lib.KERNELS) == 6
 
 
 @pytest.mark.parametrize(
     "override,exc",
     [
-        (dict(bm25_layout="blocked"), NotImplementedError),
-        (dict(approx_candidates=True), NotImplementedError),
+        (dict(variant="acc"), NotImplementedError),
+        (dict(variant="wide"), NotImplementedError),
     ],
 )
 def test_unported_paths_raise(built, override, exc):
-    art, _, _ = built
-    eng = SearchEngine(art, HashingEncoder(dim=64),
-                       Config(**CFG).replace(**override), device="cpu")
+    """The reference's U-dedup variants "acc" and "wide" (TPU kernels 5
+    and 6, reached only by asking for them) are not ported: asking
+    raises."""
+    _, eng, _ = built
+    tids, qtf, processed = eng.prepare_queries(BATCHES["sublane"])
+    uids, w = dedup_query_terms(tids, qtf)
     with pytest.raises(exc):
-        eng.search("research square")
+        ops.hybrid_rank_slots_udedup(
+            eng.didx, torch.as_tensor(uids), torch.as_tensor(w),
+            torch.as_tensor(eng.encode_queries(processed)), k_ret=10,
+            **override,
+        )
 
 
 def test_no_card_raises(built, monkeypatch):

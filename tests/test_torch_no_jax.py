@@ -39,10 +39,16 @@ def test_port_searches_with_jax_blocked():
         cfg = Config(embedding_dim=32, window_size=32, step_size=25,
                      top_k_retrieval=20, top_k_reranking=5)
         enc = HashingEncoder(dim=32)
-        eng = SearchEngine(IndexBuilder(enc, cfg).build(docs), enc, cfg,
-                           device="cpu")
-        res = eng.search_batch([texts[3][:10], texts[7]] * 5, top_k=5)
-        assert len(res) == 10 and all(len(r) > 0 for r in res), res
+        art = IndexBuilder(enc, cfg).build(docs)
+        for layout in ("slots", "blocked"):
+            eng = SearchEngine(art, enc, cfg.replace(bm25_layout=layout),
+                               device="cpu")
+            res = eng.search_batch([texts[3][:10], texts[7]] * 5, top_k=5)
+            assert len(res) == 10 and all(len(r) > 0 for r in res), res
+            assert eng.bm25_search(texts[7]) and eng.dense_search(texts[7])
+        empty = SearchEngine(IndexBuilder(enc, cfg).build([]), enc, cfg,
+                             device="cpu")
+        assert empty.search("castle") == []
         loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
                   or m.startswith("modern_search_engines_project_tpu.")]
         assert not loaded, loaded
@@ -77,12 +83,13 @@ def test_kernels_are_plain_c_builds():
         assert "cpp_extension" not in text, p
         assert "torch/extension.h" not in text, p
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bm25_slots.cu", "dense_stats.cu",
+        "bm25_blocked.cu", "bm25_slots.cu", "dense_stats.cu",
     ]
 
 
 def test_each_kernel_names_what_it_replaces():
     from modern_search_engines_project_tpu_torch.retrieval import (  # noqa: F401
+        bm25_blocked,
         bm25_slots,
         dense_stats,
     )
@@ -91,9 +98,9 @@ def test_each_kernel_names_what_it_replaces():
         SIGNATURES,
     )
 
-    assert [k.name for k in KERNELS] == [
-        "bm25_slots", "bm25_slots_udedup_sublane", "bm25_slots_udedup_i8",
-        "dense_stats",
+    assert sorted(k.name for k in KERNELS) == [
+        "bm25_blocked", "bm25_blocked_udedup", "bm25_slots",
+        "bm25_slots_udedup_i8", "bm25_slots_udedup_sublane", "dense_stats",
     ]
     for k in KERNELS:
         assert k.symbol in SIGNATURES

@@ -198,10 +198,144 @@ def test_bucketed_tail_matches_reference(k_ret):
 
 
 def test_approx_selection_is_refused():
-    bm = torch.zeros(1, 129)
-    with pytest.raises(NotImplementedError):
-        port._hybrid_tail_buckets(
-            bm, (torch.zeros(1, 128, 32),), (torch.zeros(128, dtype=torch.int32),),
-            torch.zeros(1, 32), n_docs_pad=128, k_ret=10, smoothing=0.15,
-            buckets=((1, 128),), approx=True,
-        )
+    """No approximate selection is run: approx=True takes the exact top-k,
+    which is what the reference's lax.approx_max_k computes off the TPU
+    (here on the CPU, on heavily tied keyed scores)."""
+    rng = np.random.default_rng(3)
+    bm = np.full((3, 1025), -1.0, np.float32)
+    hit = rng.random((3, 1024)) < 0.5
+    bm[:, :1024][hit] = rng.integers(0, 5, hit.sum())
+    emb = rng.standard_normal((2, 1024, 32)).astype(np.float32)
+    starts = (np.arange(1024) * 2).astype(np.int32)
+    q = rng.standard_normal((3, 32)).astype(np.float32)
+    kw = dict(n_docs_pad=1024, k_ret=100, smoothing=0.15, buckets=((2, 1024),))
+    args = (torch.as_tensor(bm), (torch.as_tensor(emb),),
+            (torch.as_tensor(starts),), torch.as_tensor(q))
+    got = port._hybrid_tail_buckets(*args, approx=True, **kw)
+    exact = port._hybrid_tail_buckets(*args, approx=False, **kw)
+    for a, b in zip(got, exact):
+        assert torch.equal(a, b)
+    want = ref._hybrid_tail_buckets(
+        jnp.asarray(bm), (jnp.asarray(emb),), (jnp.ones(1024, bool),),
+        (jnp.asarray(starts),), jnp.asarray(q), approx=True, **kw,
+    )
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-5)
+
+
+def _packed_case(seed, n_docs=300, dim=32, B=4):
+    """A packed (doc-major) chunk bank with 1-4 chunks a doc and keyed BM25
+    scores with ties, as the no-bucket tail reads them."""
+    rng = np.random.default_rng(seed)
+    Dp = -(-n_docs // 128) * 128
+    nck = rng.integers(1, 5, n_docs)
+    C = int(nck.sum())
+    Cp = -(-C // 128) * 128
+    emb = np.zeros((Cp, dim), np.float32)
+    emb[:C] = rng.standard_normal((C, dim))
+    emb[:C] /= np.linalg.norm(emb[:C], axis=1, keepdims=True)
+    emb[5] = emb[4]  # an exact tie between two chunks of one doc
+    chunk_doc = np.full(Cp, Dp, np.int32)
+    chunk_doc[:C] = np.repeat(np.arange(n_docs), nck)
+    start = np.zeros(Dp + 1, np.int32)
+    start[:n_docs] = np.concatenate([[0], np.cumsum(nck)[:-1]])
+    n_chunks = np.ones(Dp + 1, np.int32)
+    n_chunks[:n_docs] = nck
+    bm = np.full((B, Dp + 1), -1.0, np.float32)
+    hit = rng.random((B, n_docs)) < 0.5
+    bm[:, :n_docs][hit] = np.round(rng.gamma(2.0, 1.5, hit.sum()), 1)
+    q = rng.standard_normal((B, dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return bm, emb, chunk_doc, start, n_chunks, q, Dp
+
+
+@pytest.mark.parametrize("k_ret", [30, 200])
+def test_packed_tail_matches_reference(k_ret):
+    """The no-bucket tail (index without buckets): sorted-segment top-2
+    per doc, first-argmax winners, positional adjustment, final ranking."""
+    bm, emb, cd, start, nck, q, Dp = _packed_case(k_ret)
+    want = ref._hybrid_tail(
+        *map(jnp.asarray, (bm, emb, cd, start, nck, q)),
+        n_docs_pad=Dp, k_ret=k_ret, smoothing=0.15,
+    )
+    got = port._hybrid_tail(
+        *map(torch.as_tensor, (bm, emb, cd, start, nck, q)),
+        n_docs_pad=Dp, k_ret=k_ret, smoothing=0.15,
+    )
+    doc, vals, old, win, valid = (x.numpy() for x in got)
+    wdoc, wvals, wold, wwin, wvalid = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(valid, wvalid)
+    np.testing.assert_array_equal(doc, wdoc)
+    np.testing.assert_array_equal(win[valid], wwin[wvalid])
+    np.testing.assert_allclose(vals, wvals, atol=1e-5)
+    np.testing.assert_allclose(old, wold, atol=1e-6)
+
+
+def test_packed_tail_with_nothing_admissible():
+    bm, emb, cd, start, nck, q, Dp = _packed_case(1)
+    bm[:] = -1.0
+    got = port._hybrid_tail(
+        *map(torch.as_tensor, (bm, emb, cd, start, nck, q)),
+        n_docs_pad=Dp, k_ret=20, smoothing=0.15,
+    )
+    assert not got[4].any()
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_dense_rank_matches_reference(k):
+    _, emb, cd, _, _, q, Dp = _packed_case(k + 7)
+    want = ref.dense_rank(*map(jnp.asarray, (emb, cd, q)), n_docs_pad=Dp, k=k)
+    got = port.dense_rank(*map(torch.as_tensor, (emb, cd, q)), n_docs_pad=Dp, k=k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def test_segment_reductions_match_reference():
+    """Empty segments hold the identity (-inf for max, the int sentinel
+    for min), as jax.ops.segment_max / segment_min give."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    seg = np.sort(rng.integers(0, 40, 200)).astype(np.int32)
+    seg[seg == 7] = 8  # segment 7 empty
+    data = rng.standard_normal((3, 200)).astype(np.float32)
+    idata = rng.integers(0, 1000, (3, 200)).astype(np.int32)
+    for op, red, ident, x in (
+        (jax.ops.segment_max, "amax", float("-inf"), data),
+        (jax.ops.segment_min, "amin", BIG, idata),
+    ):
+        want = ref._segment(op, jnp.asarray(x), jnp.asarray(seg), 41)
+        got = port._segment(red, torch.as_tensor(x), torch.as_tensor(seg), 41,
+                             ident)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("k", [10, 200])
+def test_dense_rank_buckets_matches_reference(k):
+    rng = np.random.default_rng(k)
+    buckets = ((1, 128), (3, 256))
+    emb = [rng.standard_normal((n, c, 32)).astype(np.float32) for n, c in buckets]
+    emb[1][2, :40] = emb[1][0, :40]  # slot ties: the lowest slot wins
+    valid = [np.arange(c) < c - 9 for _, c in buckets]
+    starts = [(np.arange(c) * n + 1000 * i).astype(np.int32)
+              for i, (n, c) in enumerate(buckets)]
+    q = rng.standard_normal((2, 32)).astype(np.float32)
+    want = ref.dense_rank_buckets(
+        tuple(map(jnp.asarray, emb)), tuple(map(jnp.asarray, valid)),
+        tuple(map(jnp.asarray, starts)), jnp.asarray(q),
+        n_docs_pad=384, k=k, buckets=buckets,
+    )
+
+    class Idx:  # the DeviceIndex fields dense_rank_buckets reads
+        pass
+
+    d = Idx()
+    d.buckets, d.n_docs_pad = buckets, 384
+    d.bucket_emb = tuple(map(torch.as_tensor, emb))
+    d.bucket_valid = tuple(map(torch.as_tensor, valid))
+    d.bucket_start = tuple(map(torch.as_tensor, starts))
+    got = port.dense_rank_buckets(d, torch.as_tensor(q), k=k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
