@@ -8,7 +8,8 @@ printing no result, without one.  Phases (each failure ends the run with a
 non-zero exit):
 
   1. device: the card's name and power limit;
-  2. build: one nvcc call compiles csrc/*.cu (seconds are printed);
+  2. build: one nvcc -c per csrc/*.cu, all started together, then one
+     link (seconds are printed);
   3. index: synthetic IndexArtifacts in the shape of the repository's
      bench corpus (100k docs, 50k-term Zipf(0.7) vocabulary, ~80 postings
      per doc with gamma(2, 1.5) impacts, 1 + Poisson(2) chunks per doc
@@ -18,19 +19,29 @@ non-zero exit):
   4. kernels: every kernel of both paths against its plain PyTorch
      version on the same tensors at the path's shapes, with times (CUDA
      events); the blocked kernel's scores also against the slot kernel's;
+     the U-dedup kernels 2, 3, 5 ("acc") and 6 ("wide", "wide_i8") at
+     B = 16 / U = 128, B = 64 / U = 256 and B = 64 / U = 512, kernel 6
+     also bit for bit against kernels 2 and 3;
   5. end to end, each path in turn: SearchEngine.search_batch on batches
      of 1, 16 and 64 queries for the slot path and of 1, 64 sharing few
      terms and 64 with many for the blocked path (one per BM25 dispatch
      branch), the launch counters set to 0 before each batch and read
      after it (exactly that branch's BM25 kernel once, the stats kernel
-     once per bucket); the slot results held against the port's own
+     once per bucket); then this slice's paths, each with the counters
+     set to 0 before it and read after: ``ops.hybrid_rank_slots_udedup``
+     with no ``variant`` (the legacy default, kernel 5 once) at B = 16 and
+     64, held against variant="sublane" and the numpy oracle, and the
+     U-dedup A/B bench (``bench_kernels.gate_fit``: 8 (B, U) cells x 5
+     variants, each held against kernel 2, with the gate's agreement);
+     the slot results held against the port's own
      engine on the CPU and the numpy oracle, the blocked results against
      the slot engine and the numpy oracle; then queries/s, p50 latency and
      one torch.profiler trace per batch (device busy time, idle share,
      device time per kernel);
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
-     slots on every BM25 kernel against its plain version;
+     slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
+     version;
      approx_candidates=True equal to the exact engine;
   7. a {"kernels": [...]} JSON line (time, bound, plain time, error per kernel),
      the nvidia-smi line, and the final {"ok": true, ...} line.
@@ -48,11 +59,11 @@ import time
 import numpy as np
 import torch
 
+from modern_search_engines_project_tpu_torch import bench_kernels
 from modern_search_engines_project_tpu_torch.config import Config
-from modern_search_engines_project_tpu_torch.index import IndexArtifacts, IndexBuilder
-from modern_search_engines_project_tpu_torch.index.vocab import TermDictionary
+from modern_search_engines_project_tpu_torch.index import IndexBuilder
 from modern_search_engines_project_tpu_torch.models import HashingEncoder
-from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
+from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     BLOCKED_KERNEL,
     blocked_plain,
@@ -88,7 +99,11 @@ from modern_search_engines_project_tpu_torch.retrieval.numpy_ref import (
     hybrid_search_numpy,
     preprocess_query,
 )
-from modern_search_engines_project_tpu_torch.text.analyzer import Analyzer
+from modern_search_engines_project_tpu_torch.synthetic import (
+    make_artifacts,
+    query_strings,
+    sample_terms,
+)
 from modern_search_engines_project_tpu_torch.utils.timing import StageTimes
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on
@@ -106,6 +121,8 @@ STATS_ATOL = 1e-4
 # U = 1152 / T = 80: with 77 terms a query a doc sums up to 77 matched
 # products and scores reach ~100, where one f32 ulp is 7.6e-6; sums taken
 # in another order differ by a few ulps -> rtol 1e-6 beside atol 1e-5.
+# Kernel 5 ("acc") sums a 3-way bf16 split in another order than its plain
+# version at every shape, so it is held to the same rtol.
 WIDE_RTOL = 1e-6
 # End to end: the card's engine and the CPU engine (same bf16 bank) differ
 # only in summation order inside the stats and the f32 fusion arithmetic;
@@ -121,112 +138,6 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def _letters(n: int) -> str:
-    s = ""
-    n += 1
-    while n:
-        n, r = divmod(n - 1, 26)
-        s = chr(ord("a") + r) + s
-    return s
-
-
-def make_artifacts(seed, n_docs, n_terms, nnz_target, avg_chunks, dim):
-    """Synthetic index in the bench corpus's shape.  Term 0 is the anchor
-    "tuebingen" that query preprocessing appends to every query."""
-    rng = np.random.default_rng(seed)
-    ranks = np.arange(1, n_terms + 1)
-    dfs = (1.0 / ranks) ** 0.7
-    dfs = np.maximum((dfs / dfs.sum() * nnz_target).astype(np.int64), 1)
-    dfs = np.minimum(dfs, n_docs)
-    # one posting per (term, doc): duplicate draws collapse
-    pairs = np.unique(
-        np.repeat(np.arange(n_terms, dtype=np.int64), dfs) * n_docs
-        + rng.integers(0, n_docs, int(dfs.sum()))
-    )
-    terms = pairs // n_docs
-    post_docs = (pairs % n_docs).astype(np.int32)
-    df = np.bincount(terms, minlength=n_terms).astype(np.int32)
-    indptr = np.zeros(n_terms + 1, np.int32)
-    np.cumsum(df, out=indptr[1:])
-    post_impact = rng.gamma(2.0, 1.5, post_docs.size).astype(np.float32)
-
-    doc_n = np.minimum(1 + rng.poisson(avg_chunks - 1.0, n_docs), 10)
-    doc_n = doc_n.astype(np.int32)
-    n_chunks = int(doc_n.sum())
-    chunk_doc = np.repeat(np.arange(n_docs, dtype=np.int32), doc_n)
-    doc_start = np.zeros(n_docs, np.int32)
-    np.cumsum(doc_n[:-1], out=doc_start[1:])
-    emb = rng.standard_normal((n_chunks, dim), dtype=np.float32)
-    emb /= np.sqrt(np.einsum("ij,ij->i", emb, emb))[:, None]
-
-    words = ["tuebingen"] + [f"z{_letters(i)}q" for i in range(n_terms - 1)]
-    an = Analyzer()
-    check(all(an.tokens(w) == [w] for w in words), "vocab not analyzer-stable")
-    doc_len = np.bincount(post_docs, minlength=n_docs).astype(np.int32)
-    n_dom = 2000
-    urls = [f"https://www.site{i % n_dom}.de/page{i}" for i in range(n_docs)]
-    art = IndexArtifacts(
-        indptr=indptr,
-        post_docs=post_docs,
-        post_impact=post_impact,
-        idf=np.log((n_docs - df + 0.5) / (df + 0.5)).astype(np.float32),
-        df=df,
-        doc_len=doc_len,
-        avgdl=float(doc_len.mean()),
-        chunk_emb=emb,
-        chunk_doc=chunk_doc,
-        doc_chunk_start=doc_start,
-        doc_n_chunks=doc_n,
-        vocab=TermDictionary({w: i for i, w in enumerate(words)}),
-        doc_ids=list(range(10**6, 10**6 + n_docs)),
-        urls=urls,
-        titles=[f"page {i}" for i in range(n_docs)],
-        domains=[f"www.site{i % n_dom}.de" for i in range(n_docs)],
-        snippets=[f"page {i}: ..." for i in range(n_docs)],
-        window_texts=[f"window {i}" for i in range(n_chunks)],
-        config=Config(embedding_dim=dim),
-    )
-    return art, words, dfs
-
-
-def sample_terms(rng, dfs, B, T, by_df=True, pool=None):
-    """Per query 1-5 terms (by document frequency, or uniform), as in the
-    bench's query model, or 2-5 distinct terms from the ``pool`` most
-    frequent ones (a batch sharing terms); returns (term_ids [B, T] pad -1,
-    qtf [B, T])."""
-    n_terms = len(dfs)
-    probs = dfs / dfs.sum() if by_df else None
-    top = np.argsort(-dfs[1:], kind="stable")[: pool or 1] + 1
-    tids = np.full((B, T), -1, np.int32)
-    qtf = np.zeros((B, T), np.float32)
-    for b in range(B):
-        n_q = int(rng.integers(1, 6)) if by_df else T - 1
-        if pool:
-            draw = rng.choice(top, int(rng.integers(2, 6)), replace=False)
-        else:
-            draw = rng.choice(n_terms, size=n_q, p=probs)
-        draws = np.concatenate([[0], draw])
-        uniq, counts = np.unique(draws, return_counts=True)
-        tids[b, : len(uniq)] = uniq[:T]
-        qtf[b, : len(uniq)] = counts[:T]
-    return tids, qtf
-
-
-def query_strings(rng, dfs, words, B, min_distinct=0):
-    """Query texts of 1-5 df-drawn terms; redrawn until the batch (with
-    the anchor appended by preprocessing) has > ``min_distinct`` terms."""
-    while True:
-        tids, qtf = sample_terms(rng, dfs, B, 8)
-        qs = [
-            " ".join(words[t] for t, c in zip(ti, qi) if t > 0
-                     for _ in range(int(c)))
-            for ti, qi in zip(tids, qtf)
-        ]
-        distinct = len({t for row in tids for t in row if t >= 0})
-        if distinct > min_distinct:
-            return qs
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -290,10 +201,17 @@ def check_kernels(eng, dfs, rng):
             k1 = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
     rows["bm25_slots"] = dict(k1, max_abs_err=err1)
 
-    # kernels 2 and 3: U = 128 (df-drawn) and U = 512 (uniform draws)
+    # kernels 2 and 3 (id lookup), 5 and 6 (tensor-core products): U = 128
+    # and 256 (df-drawn, B = 16 and 64) and U = 512 (uniform draws).  All
+    # five share the bound of kernels 2-3.  Kernel 6 equals kernels 2-3 bit
+    # for bit; kernel 5 ("acc") sums a 3-way bf16 split in another order,
+    # so it is held to WIDE_RTOL beside BM25_ATOL.
     cases = [(1, True), (16, True), (64, True), (64, False)]
-    for variant, main_b in (("sublane", 16), ("i8", 64)):
+    same_as = {"wide": "sublane", "wide_i8": "i8"}
+    for variant, main_b in (("sublane", 16), ("i8", 64), ("acc", 64),
+                            ("wide", 64), ("wide_i8", 64)):
         kern = UDEDUP_KERNELS[variant]
+        rtol = WIDE_RTOL if variant == "acc" else 0.0
         err, main = 0.0, None
         for B, by_df in cases:
             tids, qtf = sample_terms(rng, dfs, B, 8, by_df)
@@ -303,7 +221,13 @@ def check_kernels(eng, dfs, rng):
             got = slots_udedup_keyed(st, *views, u, wt, variant)
             want = slots_udedup_plain(*views, u, wt, variant)
             e = (got - want).abs().max().item()
-            check(e <= BM25_ATOL, f"{kern.name} B={B} U={u.numel()}: err {e}")
+            excess = ((got - want).abs() - rtol * want.abs()).max().item()
+            check(excess <= BM25_ATOL and torch.equal(got < 0, want < 0),
+                  f"{kern.name} B={B} U={u.numel()}: err {e}")
+            if variant in same_as:
+                check(torch.equal(got, slots_udedup_keyed(
+                    st, *views, u, wt, same_as[variant])),
+                    f"{kern.name} B={B}: not equal to {same_as[variant]}")
             err = max(err, e)
             ms = cuda_ms(
                 lambda: slots_udedup_keyed(st, *views, u, wt, variant), 20
@@ -315,9 +239,15 @@ def check_kernels(eng, dfs, rng):
             nb = table_bytes + matched * 4 + uids.nbytes + w.nbytes
             nb += got.numel() * 4
             b_ms, b_by = bound(nb, n_real + matched * 2 * B, F32_OPS)
+            Bp, Up = -(-B // 16) * 16, -(-u.numel() // 128) * 128
+            wide_ops = 2 * Bp * Up * st.terms.numel()  # one product a slot
+            tc_ops = {"acc": 8 * Bp * Up * st.n_cols,  # four a doc column
+                      "wide": wide_ops, "wide_i8": wide_ops}.get(variant)
             log(f"  {kern.name} B={B} U={u.numel()}: err {e:.2e} kernel "
                 f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
-                f"{matched} of {n_real} postings matched)")
+                f"{matched} of {n_real} postings matched)"
+                + (f"; tensor-core product {tc_ops:.3e} operations"
+                   if tc_ops else ""))
             if B == main_b and by_df:
                 main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
         rows[kern.name] = dict(main, max_abs_err=err)
@@ -361,6 +291,77 @@ def check_kernels(eng, dfs, rng):
             )
     rows["dense_stats"]["max_abs_err"] = err4
     return rows
+
+
+def legacy_default(eng, rng, dfs, words, cfg, enc, art):
+    """``ops.hybrid_rank_slots_udedup`` with no ``variant``: the legacy
+    default picks "acc" (kernel 5), as in the reference.  At B = 16 and 64
+    the counters are set to 0 before the call and read after: kernel 5
+    once, kernels 2-3 never, the stats kernel once per bucket.  The top-10
+    (through ``finish_batch``) equals variant="sublane"'s and, on three
+    queries, the numpy oracle's, outside near-ties.  Returns the launch
+    counts per batch."""
+    n_buckets = len(eng.didx.buckets)
+    kw = dict(k_ret=eng.k_ret, smoothing=eng.cfg.smoothing,
+              approx=eng._approx)
+    launches = {}
+    for B in (16, 64):
+        qs = query_strings(rng, dfs, words, B)
+        tids, qtf, processed = eng.prepare_queries(qs)
+        uids, w = dedup_query_terms(tids, qtf)
+        u = torch.as_tensor(uids, device=eng.device)
+        wt = torch.as_tensor(w, device=eng.device)
+        qv = torch.as_tensor(eng.encode_queries(processed), device=eng.device)
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+        outs = ops.hybrid_rank_slots_udedup(eng.didx, u, wt, qv, **kw)
+        counts = {k.name: k.launches for k in cuda_lib.KERNELS}
+        launches[f"B={B}"] = counts
+        log(f"legacy default B={B} U={uids.size} launches: {counts}")
+        for k_name, n in counts.items():
+            want = (1 if k_name == "bm25_slots_udedup_acc" else n_buckets
+                    if k_name == "dense_stats" else 0)
+            check(n == want, f"legacy default B={B}: {k_name} launched {n} "
+                  f"times, not {want}")
+        got = eng.finish_batch(eng._to_host(outs), qs, 10)
+        ref = eng.finish_batch(eng._to_host(ops.hybrid_rank_slots_udedup(
+            eng.didx, u, wt, qv, variant="sublane", **kw)), qs, 10)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            check(len(g) > 0, f"legacy default B={B} q{i}: empty")
+            same_top(g, r, f"legacy default vs sublane B={B} q{i}")
+        same_as_oracle(art, enc, cfg, got, qs[:3], f"legacy default B={B}")
+        log(f"  legacy default B={B}: top-10 == variant='sublane' on every "
+            "query, == numpy oracle on 3")
+    return launches
+
+
+def bench_phase(eng, dfs):
+    """The U-dedup A/B bench (``bench_kernels.gate_fit``) in-process on the
+    slot engine's index: every (B, U) cell and variant timed, each
+    variant held against kernel 2.  Returns the launch counts of the
+    run."""
+    for k in cuda_lib.KERNELS:
+        k.launches = 0
+    t0 = time.time()
+    rows, gate, par = bench_kernels.gate_fit(eng.didx, dfs)
+    counts = {k.name: k.launches for k in cuda_lib.KERNELS}
+    n_ok = sum(c["agree"] for c in gate.values())
+    check(len(gate) == 8 and all(
+        all(isinstance(c[v], float) for v in ("plain", *bench_kernels.VARIANTS))
+        for c in gate.values()), "gate fit: a cell is missing")
+    log(f"bench gate_fit ({time.time() - t0:.1f} s; launches {counts}):")
+    log(f"  raw ms per call: {json.dumps(rows)}")
+    for cell, c in gate.items():
+        ident = [v for v, r in par[cell].items() if r["bit_identical"]]
+        err = max(r["max_abs_err"] for r in par[cell].values())
+        log(f"  {cell}: " + " ".join(
+            f"{k} {c[k]:.4f}" for k in ("plain", *bench_kernels.VARIANTS))
+            + f" | winner {c['measured_winner']} gate {c['gate_pick']} "
+            f"agree {c['agree']} | bit-identical to kernel 2: {ident}, "
+            f"max abs diff {err:.2e}")
+    log(f"gate agreement: {n_ok}/{len(gate)} cells (pick within 10% + "
+        "0.05 ms of the measured winner)")
+    return {"gate_fit": counts}
 
 
 def to_artifact_order(keyed, doc_perm, n_docs):
@@ -560,7 +561,7 @@ def check_empty_index(cfg, enc):
 def check_wide_batches(seed, dev):
     """U = 1152 distinct terms (above the kernels' shared-memory uid table
     of 1024) and T = 80 term slots (above the shared query table of 64) on
-    kernels 1-3 and 7-8, against their plain versions, on a 12k-doc index
+    kernels 1-3, 5-6 and 7-8, against their plain versions, on a 12k-doc index
     (the plain versions' time grows with B x T).  Each kernel is also timed
     there and on the same queries cut to T = 64 (61 terms, U <= 1024),
     which take the shared-memory tables."""
@@ -595,7 +596,7 @@ def check_wide_batches(seed, dev):
                 lambda: blocked_udedup_plain(blk, u, wt),
             ),
         }
-        for v in ("sublane", "i8"):
+        for v in UDEDUP_KERNELS:
             out[UDEDUP_KERNELS[v].name] = (
                 lambda v=v: slots_udedup_keyed(stream, vt, vi, u, wt, v),
                 lambda v=v: slots_udedup_plain(vt, vi, u, wt, v),
@@ -712,10 +713,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
-    art, words, dfs = make_artifacts(
-        args.seed, n_docs=100_000, n_terms=50_000, nnz_target=8_000_000,
-        avg_chunks=3.0, dim=768,
-    )
+    art, words, dfs = make_artifacts(args.seed)  # the 100k bench corpus
     log(f"index: {art.n_docs} docs, {art.n_chunks} chunks, "
         f"{art.post_docs.size} postings, made in {time.time() - t0:.1f} s")
     cfg = Config()  # the default: slots layout, U-dedup, exact top-k
@@ -772,6 +770,10 @@ def main(argv=None) -> int:
     results, launches = {}, {}
     for label, (e, batches, want_bm25) in paths.items():
         results[label], launches[label] = drive(e, batches, want_bm25, label)
+    # this slice's paths: the legacy-default ops call and the A/B bench
+    launches["legacy default"] = legacy_default(eng, rng, dfs, words, cfg,
+                                                enc, art)
+    launches["bench"] = bench_phase(eng, dfs)
 
     t0 = time.time()
     cpu = SearchEngine(art, enc, cfg, bank_dtype=torch.bfloat16, device="cpu")
@@ -817,6 +819,8 @@ def main(argv=None) -> int:
         r = rows[k.name]
         per_batch = {f"{label} {key}": launches[label][key][k.name]
                      for label in launches for key in launches[label]}
+        check(sum(per_batch.values()) > 0,
+              f"{k.name}: launched no time on the main paths")
         out.append({
             "name": k.name,
             "route": "cuda",

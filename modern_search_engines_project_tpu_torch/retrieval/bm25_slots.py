@@ -1,16 +1,24 @@
-"""BM25 over the doc-slot layout: kernels 1-3 of the query path.
+"""BM25 over the doc-slot layout: TPU kernels 1, 2, 3, 5 and 6.
 
 Counterpart of the slot half of the reference package's
-``retrieval/bm25_pallas.py``.  Three TPU kernels score the slot postings
-there; here each is a hand-written CUDA kernel (``csrc/bm25_slots.cu``)
-with a plain PyTorch version beside its wrapper:
+``retrieval/bm25_pallas.py``.  Five TPU kernels score the slot postings
+there; here each is a hand-written CUDA kernel with a plain PyTorch
+version beside its wrapper:
 
   * ``slots_keyed``          <- ``_kernel_slots``, every query matched
-    against its own T term ids;
-  * ``slots_udedup_keyed(variant="sublane" | "i8")`` <-
-    ``_kernel_slots_udedup`` / ``_kernel_slots_udedup_i8``, postings matched
-    once against the batch's distinct term ids, per-query weights recovered
-    from the ``[2B, U]`` weight matrix.
+    against its own T term ids (``csrc/bm25_slots.cu``);
+  * ``slots_udedup_keyed(variant=...)``: postings matched once against the
+    batch's distinct term ids, per-query weights recovered from the
+    ``[2B, U]`` weight matrix:
+      - "sublane", "i8" <- ``_kernel_slots_udedup`` /
+        ``_kernel_slots_udedup_i8``: a lookup of the matched id
+        (``csrc/bm25_slots.cu``);
+      - "wide", "wide_i8" <- ``_kernel_slots_udedup_wide``: the weights as
+        a bf16 or int8 product with a 0/1 match tile on the tensor cores
+        (``csrc/bm25_slots_mma.cu``);
+      - "acc" <- ``_kernel_slots_udedup_acc``: impacts and presence
+        accumulated per distinct id, then ``w[:B] @ X`` (X split three ways
+        into bf16) and ``w[B:2B] @ P`` on the tensor cores (same file).
 
 A wrapper takes the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -18,7 +26,10 @@ for CUDA tensors it launches the kernel or raises.
 Keyed contract (as in the reference): a column holds the doc's score when
 the doc matched and the score is >= 0, else -1; ``_slots_key`` maps the
 class-concatenated columns to dense doc order and appends a -1 sentinel
-column.  All three are exact: integer weights, f32 sums.
+column.  All are exact (integer weights, f32 or s32 sums) except "acc",
+whose split product sums in another order (an ulp or two).  "acc" alone
+reads the presence rows ``w[B:2B]``; the others derive presence from the
+weight.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ SLOTS_KERNEL = cuda_lib.register(
         "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:190",
     )
 )
+_MMA_SOURCE = "modern_search_engines_project_tpu_torch/csrc/bm25_slots_mma.cu"
 UDEDUP_KERNELS = {
     "sublane": cuda_lib.register(
         cuda_lib.CudaKernel(
@@ -60,7 +72,34 @@ UDEDUP_KERNELS = {
             "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:289",
         )
     ),
+    "acc": cuda_lib.register(
+        cuda_lib.CudaKernel(
+            "bm25_slots_udedup_acc",
+            "mse_bm25_slots_udedup_acc",
+            _MMA_SOURCE,
+            "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:380",
+        )
+    ),
+    "wide": cuda_lib.register(
+        cuda_lib.CudaKernel(
+            "bm25_slots_udedup_wide",
+            "mse_bm25_slots_udedup_wide_bf16",
+            _MMA_SOURCE,
+            "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:327",
+        )
+    ),
+    "wide_i8": cuda_lib.register(
+        cuda_lib.CudaKernel(
+            "bm25_slots_udedup_wide_i8",
+            "mse_bm25_slots_udedup_wide_i8",
+            _MMA_SOURCE,
+            "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:327",
+        )
+    ),
 }
+# the variants whose launcher takes packed-weight scratch, and its bytes per
+# (padded query, padded id): wq (and wp for "acc"), bf16 or int8
+_MMA_WEIGHT_BYTES = {"acc": 4, "wide": 2, "wide_i8": 1}
 
 
 # ---- host-side dispatch and query prep -------------------------------------
@@ -153,17 +192,22 @@ def slots_plain(slot_terms, slot_impact, tids, qtf) -> torch.Tensor:
 
 
 def slots_udedup_plain(slot_terms, slot_impact, uids, w, variant: str):
-    """Plain version of kernels 2 ("sublane") and 3 ("i8"): the TPU
-    kernels' arithmetic as written — a 0/1 match matrix against the U
-    distinct ids, weights cast to bf16 or int8, ``mw = w[:B] @ mu`` —
-    then keyed.  The product is taken in f32, which is exact for these
-    small-integer weights (the int8 variant's s8 x s8 -> s32 product has
-    the same value)."""
-    if variant not in ("sublane", "i8"):
+    """Plain version of the U-dedup kernels 2 ("sublane"), 3 ("i8"), 6
+    ("wide", "wide_i8") and 5 ("acc", ``_acc_plain``): the TPU kernels'
+    arithmetic as written — a 0/1 match matrix against the U distinct ids,
+    weights cast to bf16 or int8, ``mw = w[:B] @ mu`` — then keyed.  The
+    product is taken in f32, which is exact for these small-integer
+    weights (the int8 variants' s8 x s8 -> s32 product has the same
+    value).  "wide" fuses the TPU's per-sublane products into one, which
+    changes no value, so it shares the arithmetic of "sublane" (and
+    "wide_i8" that of "i8")."""
+    if variant == "acc":
+        return _acc_plain(slot_terms, slot_impact, uids, w)
+    if variant not in ("sublane", "i8", "wide", "wide_i8"):
         raise ValueError(f"unknown U-dedup variant {variant!r}")
     B = w.shape[0] // 2
     U = uids.shape[0]
-    cast = torch.bfloat16 if variant == "sublane" else torch.int8
+    cast = torch.bfloat16 if variant in ("sublane", "wide") else torch.int8
     wq = w[:B].to(cast).to(torch.float32)  # [B, U]
     parts = []
     for terms, impact in zip(slot_terms, slot_impact):
@@ -176,6 +220,42 @@ def slots_udedup_plain(slot_terms, slot_impact, uids, w, variant: str):
             mw = (wq @ mu.reshape(U, -1)).reshape(B, n_g, r1 - r0, cols)
             s += (mw * impact[None, :, r0:r1, :]).sum(2)
             c += (mw > 0).float().sum(2)
+        parts.append(_keyed(s, c).reshape(B, n_g * cols))
+    return torch.cat(parts, dim=1)
+
+
+def _split3(x: torch.Tensor):
+    """The TPU kernel's 3-way bf16 split of f32 ``x``
+    (``bm25_pallas.py:434-437``), each part back in f32."""
+    x1 = x.to(torch.bfloat16)
+    r1 = x - x1.float()
+    x2 = r1.to(torch.bfloat16)
+    x3 = (r1 - x2.float()).to(torch.bfloat16)
+    return x1.float(), x2.float(), x3.float()
+
+
+def _acc_plain(slot_terms, slot_impact, uids, w):
+    """Plain version of kernel 5 ("acc"): per class, X[u, col] = the summed
+    impact of distinct id u in doc column col and P[u, col] its match
+    count, over all rows; then ``S = wq@x1 + wq@x2 + wq@x3`` (X split three
+    ways into bf16) and ``C = wp@P`` with ``wq = bf16(w[:B])`` and
+    ``wp = bf16(w[B:2B])``, the presence rows; keyed on (C, S)."""
+    B = w.shape[0] // 2
+    U = uids.shape[0]
+    wq = w[:B].to(torch.bfloat16).float()
+    wp = w[B:].to(torch.bfloat16).float()
+    parts = []
+    for terms, impact in zip(slot_terms, slot_impact):
+        n_g, S, cols = terms.shape
+        X = torch.zeros(U, n_g, cols, dtype=torch.float32, device=terms.device)
+        P = torch.zeros_like(X)
+        for r0, r1 in _row_chunks(S, n_g * cols, U):
+            mu = uids[:, None, None, None] == terms[None, :, r0:r1, :]
+            X += torch.where(mu, impact[None, :, r0:r1, :], 0.0).sum(2)
+            P += mu.float().sum(2)
+        x1, x2, x3 = _split3(X.reshape(U, -1))
+        s = wq @ x1 + wq @ x2 + wq @ x3
+        c = wp @ P.reshape(U, -1).to(torch.bfloat16).float()
         parts.append(_keyed(s, c).reshape(B, n_g * cols))
     return torch.cat(parts, dim=1)
 
@@ -200,6 +280,15 @@ def uid_table_scratch(U: int, device):
 def table_args(table):
     """(pointer, length) launcher arguments for ``uid_table_scratch``."""
     return (0, 0) if table is None else (table.data_ptr(), table.numel())
+
+
+def weight_scratch_bytes(variant: str, B: int, U: int) -> int:
+    """Bytes of the packed-weight scratch a tensor-core U-dedup kernel
+    (csrc/bm25_slots_mma.cu) takes: B padded to 16 and U to 128, bf16
+    ``w[:B]`` ("wide"), int8 ``w[:B]`` ("wide_i8"), or bf16 ``w[:B]`` and
+    ``w[B:2B]`` ("acc"); 0 for the lookup kernels."""
+    per = _MMA_WEIGHT_BYTES.get(variant, 0)
+    return per * (-(-B // 16) * 16) * (-(-U // 128) * 128)
 
 
 def _check_stream(stream: SlotStream, dev) -> None:
@@ -237,10 +326,11 @@ def slots_keyed(stream: SlotStream, slot_terms, slot_impact, tids, qtf):
 def slots_udedup_keyed(
     stream: SlotStream, slot_terms, slot_impact, uids, w, variant: str
 ):
-    """Kernels 2 ("sublane") and 3 ("i8"): keyed scores [B, n_groups *
-    COLS].  ``uids`` [U] int32 holds distinct real ids (any order, any
-    count) and pads -2, as ``dedup_query_terms`` makes it; ``w`` is
-    [2B, U] f32 with small-integer weights in rows [0, B)."""
+    """The U-dedup kernels ("sublane", "i8", "wide", "wide_i8", "acc"):
+    keyed scores [B, n_groups * COLS].  ``uids`` [U] int32 holds distinct
+    real ids (any order, any count) and pads -2, as ``dedup_query_terms``
+    makes it; ``w`` is [2B, U] f32 with small-integer weights in rows
+    [0, B) and presence in rows [B, 2B)."""
     if uids.device.type == "cpu":
         return slots_udedup_plain(slot_terms, slot_impact, uids, w, variant)
     if variant not in UDEDUP_KERNELS:
@@ -256,13 +346,17 @@ def slots_udedup_keyed(
     out = torch.empty(B, stream.n_cols, dtype=torch.float32, device=dev)
     if B and stream.n_groups:
         table = uid_table_scratch(U, dev)
-        UDEDUP_KERNELS[variant].launch(
-            dev,
+        args = [
             stream.terms.data_ptr(), stream.impact.data_ptr(),
             stream.group_off.data_ptr(), stream.group_rows.data_ptr(),
             stream.n_groups, uids.data_ptr(), U, w.data_ptr(), B,
             out.data_ptr(), stream.n_cols, *table_args(table),
-        )
+        ]
+        if variant in _MMA_WEIGHT_BYTES:
+            n = weight_scratch_bytes(variant, B, U)
+            scratch = torch.empty(n, dtype=torch.uint8, device=dev)
+            args += [scratch.data_ptr(), n]
+        UDEDUP_KERNELS[variant].launch(dev, *args)
     return out
 
 
@@ -298,18 +392,14 @@ def bm25_score_slots(didx, term_ids, qtf) -> torch.Tensor:
     return _slots_key(full, didx.col_unperm, term_ids.shape[0])
 
 
-# the reference's other U-dedup variants, TPU kernels 5 ("acc") and 6
-# ("wide", "wide_i8"): not ported yet
-UNPORTED_VARIANTS = ("acc", "wide", "wide_i8")
-
-
-def bm25_score_slots_udedup(didx, uids, w, variant: str) -> torch.Tensor:
-    """Keyed BM25 scores [B, n_docs_pad + 1] through kernel 2 or 3."""
-    if variant in UNPORTED_VARIANTS:
-        raise NotImplementedError(
-            f"U-dedup variant {variant!r} (TPU kernels 5-6) is not ported; "
-            "use 'sublane' or 'i8'"
-        )
+def bm25_score_slots_udedup(
+    didx, uids, w, variant: str = None, *, acc: bool = True
+) -> torch.Tensor:
+    """Keyed BM25 scores [B, n_docs_pad + 1] through a U-dedup kernel.
+    ``variant`` names it; when None, the legacy ``acc`` flag picks "acc"
+    (True, the reference's default) or "sublane" (False)."""
+    if variant is None:
+        variant = "acc" if acc else "sublane"
     full = slots_udedup_keyed(
         didx.slot_stream, didx.slot_terms, didx.slot_impact, uids, w, variant
     )

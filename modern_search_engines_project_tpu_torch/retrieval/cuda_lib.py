@@ -46,6 +46,16 @@ SIGNATURES = {
     "mse_bm25_slots_udedup_i8": [
         _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
     ],
+    **{
+        sym: [
+            _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
+            _I64, _P,
+        ]
+        for sym in (
+            "mse_bm25_slots_udedup_acc", "mse_bm25_slots_udedup_wide_bf16",
+            "mse_bm25_slots_udedup_wide_i8",
+        )
+    },
     "mse_bm25_blocked": [
         _P, _P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P,
     ],

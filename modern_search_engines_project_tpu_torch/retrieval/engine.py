@@ -195,8 +195,10 @@ class SearchEngine:
         ``finish_batch``.
 
         Batches larger than ``cfg.query_batch_size`` are chunked; every
-        chunk is enqueued before the first is copied back."""
-        cap = max(1, int(self.cfg.query_batch_size))
+        chunk is enqueued before the first is copied back.  A
+        ``query_batch_size`` of None or 0 means chunks of 64, as in the
+        reference."""
+        cap = max(1, int(self.cfg.query_batch_size or 64))
         if len(queries) > cap:
             pending = []
             for i in range(0, len(queries), cap):

@@ -1,8 +1,8 @@
 """The hybrid ranking tails, in torch.
 
 Counterpart of the kernel-path subset of the reference package's
-``retrieval/ops.py``.  Bucketed tail: BM25 keyed scores (slot kernels 1-3
-or blocked kernels 7-8) -> exact top-k candidates -> candidate mask ->
+``retrieval/ops.py``.  Bucketed tail: BM25 keyed scores (slot kernels 1-3,
+5-6 or blocked kernels 7-8) -> exact top-k candidates -> candidate mask ->
 per-bucket dense statistics (kernel 4) -> pool extrema -> fusion and
 positional adjustment -> final ranking.  No-bucket tail (an index without
 chunk buckets): blocked BM25 -> top-k -> dense sims over the packed bank
@@ -439,8 +439,11 @@ def hybrid_rank_slots(
 
 def hybrid_rank_slots_udedup(
     didx, uids, w, qvec, *, k_ret: int, smoothing: float = 0.15,
-    approx: bool = False, variant: str = "sublane",
+    approx: bool = False, acc: bool = True, variant: str = None,
 ):
-    """hybrid_rank_slots with the U-dedup front end (kernel 2 or 3)."""
-    bm = bm25_score_slots_udedup(didx, uids, w, variant)
+    """hybrid_rank_slots with the U-dedup front end (kernel 2, 3, 5 or 6).
+    ``variant`` picks the kernel (the engine passes ``udedup_plan``'s
+    pick); the legacy ``acc`` flag applies only when it is None: "acc"
+    (kernel 5) if True, as in the reference, else "sublane"."""
+    bm = bm25_score_slots_udedup(didx, uids, w, variant, acc=acc)
     return _tail_of(didx, bm, qvec, k_ret, smoothing, approx)

@@ -4,10 +4,12 @@ TPU-native re-design of the reference's spaCy analysis pipeline
 (reference ``indexer/bm25_indexer.py:16-54`` — lowercase + tübingen
 normalization, 1M-char cap, lemma + stopword/punctuation/alpha filter,
 term counting).  The reference runs spaCy (Cython) in a multiprocessing
-pool; here the analyzer is a dependency-free deterministic pipeline, so the
-frozen term dictionary can be rebuilt bit-identically anywhere.  (The
-reference package also carries a C++ fast path, ``native/analyzer.cpp``;
-this port keeps the pure-Python pipeline only.)
+pool; here the analyzer is a dependency-free deterministic pipeline with a
+C++ route (``native/analyzer.cpp``, built with g++ at first use) so the
+frozen term dictionary can be rebuilt bit-identically anywhere.  The C++
+route is the default, as in the reference package; the two routes agree on
+Latin-1 text and differ beyond it (the C++ case fold covers fewer code
+points than ``str.lower()``: U+0130, U+1E9E, U+212A).
 
 Output terms feed the term dictionary (``index/vocab.py``) whose ids are
 what the device-side BM25 kernels consume — the analyzer itself is
@@ -246,11 +248,25 @@ class Analyzer:
       3. regex word tokenization            (spaCy tokenizer analog)
       4. drop stopwords / len<2 / digits    (bm25_indexer.py:41-47)
       5. lemma-light stemming               (token.lemma_ analog)
+
+    ``use_native=True`` (the default) runs it in C++ and raises if the
+    library does not build; ``use_native=False`` runs the Python pipeline.
     """
+
+    def __init__(self, use_native: bool = True):
+        self._native = None
+        if use_native:
+            from modern_search_engines_project_tpu_torch.native import (
+                native_analyzer,
+            )
+
+            self._native = native_analyzer.load()
 
     def tokens(self, text: str) -> List[str]:
         if len(text) > MAX_DOC_CHARS:
             text = text[:MAX_DOC_CHARS]
+        if self._native is not None:
+            return self._native.analyze(text)
         text = normalize_text(text)
         out = []
         for m in _TOKEN_RE.finditer(text):
@@ -266,6 +282,10 @@ class Analyzer:
     def count(self, text: str) -> Dict[str, int]:
         """Term -> frequency, as the reference's per-doc term counts
         (bm25_indexer.py:49-53)."""
+        if self._native is not None:
+            if len(text) > MAX_DOC_CHARS:
+                text = text[:MAX_DOC_CHARS]
+            return self._native.analyze_counts(text)
         return dict(Counter(self.tokens(text)))
 
     def analyze_batch(self, texts: Iterable[str]) -> List[Dict[str, int]]:

@@ -39,18 +39,31 @@ def fnv1a_64(data: bytes) -> int:
 
 
 class HashTokenizer:
-    """Word-level hashing tokenizer with character offsets."""
+    """Word-level hashing tokenizer with character offsets.
+
+    ``use_native=True`` (the default, as in the reference package) tokenizes
+    in C++ (``native/analyzer.cpp``) and raises if the library does not
+    build; ``use_native=False`` runs the Python route.  The two differ on
+    capitals outside Latin-1, which the C++ case fold leaves as they are."""
 
     def __init__(
         self,
         vocab_size: int = 50257,
         cache_size: int = 1 << 18,
+        use_native: bool = True,
     ):
         if vocab_size <= N_SPECIAL:
             raise ValueError("vocab_size must exceed reserved special ids")
         self.vocab_size = vocab_size
         self._cache: dict = {}
         self._cache_size = cache_size
+        self._native = None
+        if use_native:
+            from modern_search_engines_project_tpu_torch.native import (
+                native_analyzer,
+            )
+
+            self._native = native_analyzer.load()
 
     def token_id(self, word: str) -> int:
         # natural-language word distributions are Zipfian: a small cache
@@ -67,6 +80,8 @@ class HashTokenizer:
     def encode_with_offsets(
         self, text: str
     ) -> Tuple[List[int], List[Tuple[int, int]]]:
+        if self._native is not None:
+            return self._native.hash_tokenize(text, self.vocab_size)
         ids, offsets = [], []
         for m in _WORD_RE.finditer(text):
             ids.append(self.token_id(m.group(0)))

@@ -181,7 +181,7 @@ def test_wrappers_take_plain_versions_on_cpu(built):
         port.slots_keyed(st, pi.slot_terms, pi.slot_impact, t, q),
         port.slots_plain(pi.slot_terms, pi.slot_impact, t, q),
     )
-    for variant in ("sublane", "i8"):
+    for variant in port.UDEDUP_KERNELS:
         assert torch.equal(
             port.slots_udedup_keyed(st, pi.slot_terms, pi.slot_impact, u, wt,
                                     variant),
@@ -192,7 +192,7 @@ def test_wrappers_take_plain_versions_on_cpu(built):
         k.launches for k in (port.SLOTS_KERNEL, *port.UDEDUP_KERNELS.values())
     ]
     with pytest.raises(ValueError):
-        port.slots_udedup_plain(pi.slot_terms, pi.slot_impact, u, wt, "acc")
+        port.slots_udedup_plain(pi.slot_terms, pi.slot_impact, u, wt, "blocked")
 
 
 # ---- launch arguments for any U and any T -----------------------------------

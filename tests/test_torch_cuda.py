@@ -329,6 +329,82 @@ def test_any_u_and_any_t(both_layouts, cuda):
     assert (bplain >= 0).any()
 
 
+# ---- kernels 5 ("acc") and 6 ("wide", "wide_i8"): tensor-core products ----
+
+# what each tensor-core variant equals bit for bit: the lookup kernel with
+# the same weight cast ("acc" sums in another order, so it has none)
+SAME_AS = {"wide": "sublane", "wide_i8": "i8"}
+
+
+@pytest.mark.parametrize("variant", ["acc", "wide", "wide_i8"])
+@pytest.mark.parametrize("B,T", [(1, 4), (8, 4), (16, 8), (64, 16), (70, 8)])
+def test_mma_udedup_kernels_match_plain(slots, cuda, variant, B, T):
+    """Kernels 5 and 6 against their plain versions (1e-5); kernel 6 also
+    against kernel 2 or 3 on the card, bit for bit.  B = 70 takes two
+    query chunks of the grid, the second padded."""
+    views_t, views_i, stream, n_terms, rng = slots
+    tids, qtf = _queries(rng, B, T, n_terms)
+    uids, w = dedup_query_terms(tids, qtf)
+    u = torch.as_tensor(uids, device=cuda)
+    wt = torch.as_tensor(w, device=cuda)
+    before = UDEDUP_KERNELS[variant].launches
+    got = slots_udedup_keyed(stream, views_t, views_i, u, wt, variant)
+    assert UDEDUP_KERNELS[variant].launches == before + 1
+    want = slots_udedup_plain(views_t, views_i, u, wt, variant)
+    torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+    assert torch.equal(got < 0, want < 0)
+    if variant in SAME_AS:
+        lookup = slots_udedup_keyed(stream, views_t, views_i, u, wt,
+                                    SAME_AS[variant])
+        assert torch.equal(got, lookup)
+
+
+def test_acc_kernel_reads_presence_rows(slots, cuda):
+    """Kernel 5 takes presence from the rows w[B:2B], as the TPU kernel
+    does: a doc matching only terms present with weight 0 keys to 0 under
+    "acc" and to -1 under the variants that derive presence from the
+    weight."""
+    views_t, views_i, stream, n_terms, rng = slots
+    tids, qtf = _queries(rng, 16, 8, n_terms)
+    uids, w = dedup_query_terms(tids, qtf)
+    u = torch.as_tensor(uids, device=cuda)
+    wt = torch.as_tensor(_presence_apart(w, 6), device=cuda)
+    got = slots_udedup_keyed(stream, views_t, views_i, u, wt, "acc")
+    want = slots_udedup_plain(views_t, views_i, u, wt, "acc")
+    torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+    assert torch.equal(got < 0, want < 0)
+    base = slots_udedup_keyed(stream, views_t, views_i, u,
+                              torch.as_tensor(w, device=cuda), "acc")
+    assert not torch.equal(got < 0, base < 0)
+    wide = slots_udedup_keyed(stream, views_t, views_i, u, wt, "wide")
+    zero_only = (got == 0) & (wide == -1)
+    assert zero_only.any()
+
+
+def test_mma_kernels_any_u(both_layouts, cuda):
+    """Kernels 5 and 6 at U = 1152 (device-memory uid table, the weight
+    rows of "wide" still in shared memory) and at U = 2048 (the bf16
+    weights of "wide" read from device memory, "acc" in two U chunks)
+    against their plain
+    versions, with the tolerance of test_any_u_and_any_t."""
+    (vt, vi, stream, cu), _, n_terms, _ = both_layouts
+    for B, T, n_u in ((17, 80, 1152), (40, 80, 2048)):
+        tids, qtf = _wide_queries(np.random.default_rng(11), B, T, n_terms)
+        uids, w = dedup_query_terms(tids, qtf)
+        assert uids.size == n_u
+        u = torch.as_tensor(uids, device=cuda)
+        wt = torch.as_tensor(w, device=cuda)
+        for variant in ("acc", "wide", "wide_i8"):
+            got = slots_udedup_keyed(stream, vt, vi, u, wt, variant)
+            want = slots_udedup_plain(vt, vi, u, wt, variant)
+            torch.testing.assert_close(got, want, **WIDE_TOL)
+            assert torch.equal(got < 0, want < 0)
+            assert (want >= 0).any()
+            if variant in SAME_AS:
+                assert torch.equal(got, slots_udedup_keyed(
+                    stream, vt, vi, u, wt, SAME_AS[variant]))
+
+
 def test_wrappers_refuse_wrong_inputs(slots, cuda):
     views_t, views_i, stream, n_terms, _ = slots
     tids = torch.zeros(2, 4, dtype=torch.int64, device=cuda)
@@ -392,8 +468,12 @@ def test_engine_on_card_matches_cpu(cuda):
     tids, _, _ = gpu.prepare_queries(batches["blocked"][1])
     B, T = tids.shape
     assert blocked_udedup_gate(u_pad_for(len(np.unique(tids[tids >= 0]))), B, T)
+    # every kernel the engine dispatches to ran; kernels 5 and 6 ("acc",
+    # "wide", "wide_i8") are reached only through ``variant=``
+    only_by_variant = {UDEDUP_KERNELS[v] for v in ("acc", "wide", "wide_i8")}
     for k in cuda_lib.KERNELS:
-        assert k.launches > counts[k.name], k.name
+        if k not in only_by_variant:
+            assert k.launches > counts[k.name], k.name
     assert UDEDUP_KERNELS["sublane"].launches > counts["bm25_slots_udedup_sublane"]
 
 

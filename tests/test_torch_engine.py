@@ -7,6 +7,8 @@ queries (U-dedup "sublane") and 40 queries with more than 128 distinct
 terms (U-dedup "i8").  Same doc ids, windows and validity; scores to 1e-5.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,9 +26,8 @@ from modern_search_engines_project_tpu_torch.retrieval import (
     hybrid_search_numpy,
     preprocess_query,
 )
-from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
+from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
-    dedup_query_terms,
     u_pad_for,
     udedup_plan,
 )
@@ -193,29 +194,44 @@ def test_cpu_run_launches_no_kernel(built):
     eng.search_batch(BATCHES["sublane"], top_k=5)
     blocked.search_batch(BATCHES["sublane"], top_k=5)
     assert [k.launches for k in cuda_lib.KERNELS] == before
-    assert len(cuda_lib.KERNELS) == 6
+    assert len(cuda_lib.KERNELS) == 9
 
 
-@pytest.mark.parametrize(
-    "override,exc",
-    [
-        (dict(variant="acc"), NotImplementedError),
-        (dict(variant="wide"), NotImplementedError),
-    ],
-)
-def test_unported_paths_raise(built, override, exc):
-    """The reference's U-dedup variants "acc" and "wide" (TPU kernels 5
-    and 6, reached only by asking for them) are not ported: asking
-    raises."""
-    _, eng, _ = built
-    tids, qtf, processed = eng.prepare_queries(BATCHES["sublane"])
-    uids, w = dedup_query_terms(tids, qtf)
-    with pytest.raises(exc):
-        ops.hybrid_rank_slots_udedup(
-            eng.didx, torch.as_tensor(uids), torch.as_tensor(w),
-            torch.as_tensor(eng.encode_queries(processed)), k_ret=10,
-            **override,
-        )
+@pytest.mark.parametrize("qbs", [None, 0])
+def test_query_batch_size_none_or_zero_chunks_as_reference(built, monkeypatch,
+                                                          qbs):
+    """``query_batch_size`` None or 0 means chunks of 64, as in the
+    reference's ``rank_batch``: 70 queries run as a chunk of 64 and one of
+    6 padded to 8, in both engines (their ranking stubbed out)."""
+    art, eng, ref = built
+    port_eng = SearchEngine(art, HashingEncoder(dim=64),
+                            Config(**CFG).replace(query_batch_size=qbs),
+                            device="cpu")
+    monkeypatch.setattr(ref, "cfg", dataclasses.replace(ref.cfg,
+                                                        query_batch_size=qbs))
+    sizes = {"port": [], "ref": []}
+
+    def spy(e, key, host):
+        prep = e.prepare_queries
+
+        def prepare(queries, augment=True):
+            sizes[key].append(len(queries))
+            return prep(queries, augment)
+
+        def rank(term_ids, qtf, qvec):
+            z = np.zeros((len(term_ids), 3), np.float32)
+            return tuple(host(z) for _ in range(5))
+
+        monkeypatch.setattr(e, "prepare_queries", prepare)
+        monkeypatch.setattr(e, "_device_rank", rank)
+
+    spy(port_eng, "port", torch.as_tensor)
+    spy(ref, "ref", np.asarray)
+    queries = (QUERIES * 14)[:70]
+    for e in (port_eng, ref):
+        out = e.rank_batch(queries)
+        assert all(len(x) == 70 for x in out)
+    assert sizes["port"] == sizes["ref"] == [64, 8]
 
 
 def test_no_card_raises(built, monkeypatch):

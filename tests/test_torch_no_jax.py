@@ -12,7 +12,11 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "modern_search_engines_project_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# every Python module of the port (native/, bench_kernels.py and the
+# synthetic index among them), the native analyzer's C++ source, and
+# chip_smoke.py
+SOURCES = (sorted(PORT.rglob("*.py")) + sorted((PORT / "native").glob("*.cpp"))
+           + [ROOT / "chip_smoke.py"])
 FORBIDDEN = re.compile(
     r"\bjax\b|\bflax\b|modern_search_engines_project_tpu\.|"
     r"from\s+modern_search_engines_project_tpu\s+import"
@@ -30,6 +34,8 @@ def test_port_searches_with_jax_blocked():
             Document, IndexBuilder)
         from modern_search_engines_project_tpu_torch.models import HashingEncoder
         from modern_search_engines_project_tpu_torch.retrieval import SearchEngine
+        from modern_search_engines_project_tpu_torch import (  # noqa: F401
+            bench_kernels, native, synthetic)
         abc = "abcdefghijklmnopqrstuvwxyz"
         words = [f"w{a}{b}q" for a in abc for b in abc]
         texts = [" ".join(words[(i * 13 + j * 29) % 676] for j in range(8))
@@ -83,7 +89,8 @@ def test_kernels_are_plain_c_builds():
         assert "cpp_extension" not in text, p
         assert "torch/extension.h" not in text, p
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bm25_blocked.cu", "bm25_slots.cu", "dense_stats.cu",
+        "bm25_blocked.cu", "bm25_slots.cu", "bm25_slots_mma.cu",
+        "dense_stats.cu",
     ]
 
 
@@ -100,7 +107,9 @@ def test_each_kernel_names_what_it_replaces():
 
     assert sorted(k.name for k in KERNELS) == [
         "bm25_blocked", "bm25_blocked_udedup", "bm25_slots",
-        "bm25_slots_udedup_i8", "bm25_slots_udedup_sublane", "dense_stats",
+        "bm25_slots_udedup_acc", "bm25_slots_udedup_i8",
+        "bm25_slots_udedup_sublane", "bm25_slots_udedup_wide",
+        "bm25_slots_udedup_wide_i8", "dense_stats",
     ]
     for k in KERNELS:
         assert k.symbol in SIGNATURES
