@@ -18,7 +18,10 @@ non-zero exit):
      slot layout and ``bm25_layout="blocked"``;
   4. kernels: every kernel of both paths against its plain PyTorch
      version on the same tensors at the path's shapes, with times (CUDA
-     events); the blocked kernel's scores also against the slot kernel's;
+     events; kernels and library calls queued behind a sleep kernel, so
+     the host's enqueue is not counted); kernel 4 also beside one einsum +
+     top-2 and beside the bank product alone; the blocked kernel's scores
+     also against the slot kernel's, bit for bit;
      the U-dedup kernels 2, 3, 5 ("acc") and 6 ("wide", "wide_i8") at
      B = 16 / U = 128, B = 64 / U = 256 and B = 64 / U = 512, kernel 6
      also bit for bit against kernels 2 and 3;
@@ -62,6 +65,7 @@ import torch
 from modern_search_engines_project_tpu_torch import bench_kernels
 from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import IndexBuilder
+from modern_search_engines_project_tpu_torch.kernel_times import device_ms
 from modern_search_engines_project_tpu_torch.models import HashingEncoder
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
@@ -141,6 +145,9 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps, warmup=2):
+    """Time of one ``fn()`` in ms, host enqueue included (CUDA events
+    around ``reps`` calls): for the plain versions, which may wait on the
+    host.  Kernels and library calls are timed with ``device_ms``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -188,7 +195,7 @@ def check_kernels(eng, dfs, rng):
         e = (got - want).abs().max().item()
         check(e <= BM25_ATOL, f"bm25_slots B={B}: max err {e}")
         err1 = max(err1, e)
-        ms = cuda_ms(lambda: slots_keyed(st, *views, t, q), 20)
+        ms = device_ms(lambda: slots_keyed(st, *views, t, q), 20)
         pms = cuda_ms(lambda: slots_plain(*views, t, q), 3, 1)
         matched = matched_postings(t)
         nb = table_bytes + matched * 4 + tids.nbytes + qtf.nbytes
@@ -229,7 +236,7 @@ def check_kernels(eng, dfs, rng):
                     st, *views, u, wt, same_as[variant])),
                     f"{kern.name} B={B}: not equal to {same_as[variant]}")
             err = max(err, e)
-            ms = cuda_ms(
+            ms = device_ms(
                 lambda: slots_udedup_keyed(st, *views, u, wt, variant), 20
             )
             pms = cuda_ms(
@@ -253,7 +260,7 @@ def check_kernels(eng, dfs, rng):
         rows[kern.name] = dict(main, max_abs_err=err)
 
     # kernel 4: every bucket, B in {1, 16, 64}
-    err4 = 0.0
+    err4, by_batch = 0.0, {}
     for B in (1, 16, 64):
         qv = torch.randn(B, d.bucket_emb[0].shape[2], device=dev)
         qv = qv / qv.norm(dim=1, keepdim=True)
@@ -274,22 +281,27 @@ def check_kernels(eng, dfs, rng):
                 torch.topk(sims, 2, dim=1)
             return sims.amin(dim=1)
 
-        ms = cuda_ms(all_buckets(bucket_stats), 10)
+        def product(emb, q):  # yardstick only: the bf16 bank product alone
+            return torch.matmul(q.to(emb.dtype), emb.view(-1, emb.shape[2]).t())
+
+        ms = device_ms(all_buckets(bucket_stats), 10)
         pms = cuda_ms(all_buckets(stats_plain), 3, 1)
-        lms = cuda_ms(all_buckets(library), 10)
+        lms = device_ms(all_buckets(library), 10)
+        mms = device_ms(all_buckets(product), 10)
         nb = sum(e.numel() * 2 + 5 * B * e.shape[1] * 4 for e in d.bucket_emb)
         nb += B * qv.shape[1] * 2
         ops = sum(2 * B * e.numel() for e in d.bucket_emb)
         b_ms, b_by = bound(nb, ops, BF16_OPS)
         log(f"  dense_stats B={B} ({len(d.bucket_emb)} buckets): err "
             f"{err4:.2e} kernel {ms:.4f} ms plain {pms:.4f} ms library "
-            f"{lms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if B == 64:
-            rows["dense_stats"] = dict(
-                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
-                bound_by=b_by,
-            )
-    rows["dense_stats"]["max_abs_err"] = err4
+            f"(einsum + top-2) {lms:.4f} ms bank product alone {mms:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        by_batch[f"B={B}"] = dict(
+            ms=ms, plain_ms=pms, library_ms=lms, library_matmul_ms=mms,
+            bound_ms=b_ms, bound_by=b_by,
+        )
+    rows["dense_stats"] = dict(by_batch["B=64"], max_abs_err=err4,
+                               by_batch=by_batch)
     return rows
 
 
@@ -393,7 +405,7 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
     def matched_postings(ids):
         return int(torch.isin(blk.terms, ids[ids >= 0]).sum().item())
 
-    err, main = 0.0, None
+    err, by_batch = 0.0, {}
     for B in (1, 16, 64):
         tids, qtf = sample_terms(rng, dfs, B, 8)
         t = torch.as_tensor(tids, device=dev)
@@ -404,28 +416,35 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
         check(e <= BM25_ATOL, f"bm25_blocked B={B}: max err {e}")
         check(torch.equal(got < 0, want < 0), f"bm25_blocked B={B}: keys")
         err = max(err, e)
-        ms = cuda_ms(lambda: bm25_score_blocked(blk, t, q), 20)
+        ms = device_ms(lambda: bm25_score_blocked(blk, t, q), 20)
         pms = cuda_ms(lambda: blocked_plain(blk, t, q), 3, 1)
         matched = matched_postings(t)
         nb = base_bytes + matched * 4 + tids.nbytes + qtf.nbytes
         nb += got.numel() * 4
-        b_ms, b_by = bound(nb, n_real * B * (8 + 2), F32_OPS)
+        # the function's least work: one lookup per real posting, a
+        # multiply-add and a compare per query for each matched posting
+        # (as kernel 8's bound counts); the first design's bound counted
+        # its B x T compares per posting, kept beside it
+        b_ms, b_by = bound(nb, n_real + matched * 2 * B, F32_OPS)
+        old_ms, old_by = bound(nb, n_real * B * (8 + 2), F32_OPS)
         log(f"  bm25_blocked B={B} T=8: err {e:.2e} kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; {matched} of "
-            f"{n_real} postings matched)")
+            f"plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}); compare-count "
+            f"bound {old_ms:.4f} ms ({old_by}); {matched} of {n_real} "
+            "postings matched")
         if B == 16:
             slot = bm25_score_slots(eng_s.didx, t, q)
             n = eng_b.art.n_docs
             a = to_artifact_order(got, d.doc_perm, n)
             b = to_artifact_order(slot, eng_s.didx.doc_perm, n)
-            e_s = (a - b).abs().max().item()
-            check(e_s <= BM25_ATOL and torch.equal(a < 0, b < 0),
-                  f"bm25_blocked vs bm25_slots B=16: max err {e_s}")
-            log(f"  bm25_blocked == bm25_slots at B=16 in artifact doc "
-                f"order (max err {e_s:.2e})")
-        if B == 1:  # the engine's kernel-7 branch: every B = 1 batch
-            main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
-    rows["bm25_blocked"] = dict(main, max_abs_err=err)
+            check(torch.equal(a, b),
+                  "bm25_blocked vs bm25_slots B=16: not equal bit for bit")
+            log("  bm25_blocked == bm25_slots at B=16 in artifact doc "
+                "order, bit for bit")
+        by_batch[f"B={B}"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                  bound_by=b_by, bound_old_ms=old_ms)
+    # the engine's kernel-7 branch: every B = 1 batch
+    rows["bm25_blocked"] = dict(by_batch["B=1"], max_abs_err=err,
+                                by_batch=by_batch)
 
     err, main = 0.0, None
     for B, pool in ((1, None), (16, None), (64, None), (64, 100)):
@@ -439,7 +458,7 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
         check(e <= BM25_ATOL, f"bm25_blocked_udedup B={B} U={u.numel()}: {e}")
         check(torch.equal(got < 0, want < 0), f"bm25_blocked_udedup B={B}")
         err = max(err, e)
-        ms = cuda_ms(lambda: bm25_score_blocked_udedup(blk, u, wt), 20)
+        ms = device_ms(lambda: bm25_score_blocked_udedup(blk, u, wt), 20)
         pms = cuda_ms(lambda: blocked_udedup_plain(blk, u, wt), 3, 1)
         matched = matched_postings(u)
         nb = base_bytes + matched * 4 + uids.nbytes + w.nbytes
@@ -564,7 +583,9 @@ def check_wide_batches(seed, dev):
     kernels 1-3, 5-6 and 7-8, against their plain versions, on a 12k-doc index
     (the plain versions' time grows with B x T).  Each kernel is also timed
     there and on the same queries cut to T = 64 (61 terms, U <= 1024),
-    which take the shared-memory tables."""
+    which take the shared-memory tables of kernels 1-3, 5-6 and 8; kernel 7
+    keeps a chunk's table in shared memory only up to 1024 term slots
+    (17 x 64 is more), so both of its cases build device-memory tables."""
     art, _, _ = make_artifacts(seed, n_docs=12_000, n_terms=3_000,
                                nnz_target=300_000, avg_chunks=2.0, dim=32)
     csr = (np.asarray(art.indptr), np.asarray(art.post_docs),
@@ -616,9 +637,9 @@ def check_wide_batches(seed, dev):
               f"{k_name} at U=1152, T=80: off its plain version")
         check((want >= 0).any().item(), f"{k_name}: nothing matched")
         errs[k_name] = (got - want).abs().max().item()
-        ms[k_name] = {"T=80 U=1152 (device-memory tables)": cuda_ms(kern, 20),
-                      f"T=64 U={n_u64} (shared-memory tables)":
-                          cuda_ms(small[k_name][0], 20)}
+        ms[k_name] = {"T=80 U=1152 (device-memory tables)": device_ms(kern, 20),
+                      f"T=64 U={n_u64}":
+                          device_ms(small[k_name][0], 20)}
     log(f"U=1152 (T=80) against the plain versions, max abs err: {errs}")
     log(f"wide batches, 17 queries on 12,000 docs, kernel ms: {json.dumps(ms)}")
 
@@ -834,6 +855,8 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
+            **{key: r[key] for key in ("bound_old_ms", "by_batch")
+               if key in r},
         })
     log(f"total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": out}))

@@ -23,20 +23,34 @@
 // never read and can never add presence to doc 0.  One block (8 warps)
 // takes one row and a chunk of up to 32 queries; warps take the row's docs
 // one at a time from a shared counter.  The 32 lanes of a warp read 32
-// consecutive postings of the doc (coalesced) and test each: the plain
-// kernel against the chunk's query term ids, the U-dedup kernel with one
-// hash lookup among the batch's distinct ids (uid_table.cuh, shared with
-// the slot kernels).  A ballot gives the lanes that matched (1-6% of
+// consecutive postings of the doc (coalesced) and look each one up once in a
+// hash table of distinct term ids (uid_table.cuh's hash, shared with the slot
+// kernels): the U-dedup kernel among the batch's distinct ids, kernel 7
+// among its query chunk's.  A ballot gives the lanes that matched (1-6% of
 // postings for a batch of df-drawn queries at the bench shape, ~10% when
 // all share the 100 most frequent terms); for each, in lane order, the
-// posting's term (or u) and impact are broadcast and lane q adds query q's
+// posting's u and impact are broadcast and lane q adds query q's
 // m * impact.  So every (query, doc) score is an f32 sum in posting order —
 // the order of the slot kernels, since both layouts keep a doc's postings
-// in CSR order — deterministic, with no atomics.  The keyed scores of the row go through a
-// shared [32, 128] tile and leave as coalesced 512-byte rows.
+// in CSR order — deterministic, with no atomics.  The keyed scores of the
+// row go through a shared [32, 128] tile and leave as coalesced 512-byte
+// rows.
 //
-// Any T and any U: up to kMaxT query term slots are staged in shared
-// memory, more are read from device memory; U as in uid_table.cuh.  The
+// Kernel 7's table.  Its first design compared every posting with all
+// nq * T term ids of the chunk (~200 shared-memory compares at B = 64,
+// T = 8) and rebuilt a matched posting's weight m with a T loop in every
+// lane.  Both depend only on the chunk's term ids, so each block now pays
+// them once: it builds a table of the chunk's distinct ids (a term shared
+// by several queries, or repeated in one, is one entry u) and beside it
+// m[u][q] (f32, 32 queries a row, so lane q reads column q with no bank
+// conflict), summed in t order as the per-posting loop summed it — the
+// scores are the same bits.  Shared memory is sized from nq * T at launch
+// (B = 1, T = 8: a 16-slot table and 1 KB of weights); above kSmemIds
+// term slots a small kernel
+// builds each chunk's table once in device memory instead, a branch
+// taken by input size.
+//
+// Any T and any U: kernel 7 as above; kernel 8's U as in uid_table.cuh.  The
 // U-dedup kernel takes a posting's weight w[b, u] and presence w[B + b, u],
 // each cast to bf16 as the TPU kernel casts them, from a table that a small
 // kernel packs first: one word per (u, b), query-major, so the 32 lanes of
@@ -46,9 +60,10 @@
 // Bound on this card: a 4-byte term id per real posting (pads are never
 // read), the row offsets (129 int32 a row, in place of a 4-byte local id per
 // slot), a 4-byte impact per matched posting, the queries and the keyed
-// output, over 3.35 TB/s; ~33 MB at the 100k-doc bench shape, ~10 us.  The plain kernel also does B*T compares per
-// posting, which passes that memory time at large B (the engine's U-dedup
-// gate sends such batches to the U-dedup kernel when they share terms).
+// output, over 3.35 TB/s; ~33 MB at the 100k-doc bench shape, ~10 us.
+// Operations: one table lookup per real posting and a multiply-add and a
+// compare per query for each matched posting, which passes that memory
+// time at B = 64.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,8 +77,23 @@ constexpr int kDocs = 128;  // docs per blocked row (DOC_BLOCK)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kQC = 32;     // queries per block: lane q folds query q0 + q
-constexpr int kMaxT = 64;   // query term slots staged in shared memory
+// Kernel 7: a chunk's distinct-id table lives in shared memory when the
+// chunk holds at most kSmemIds query term slots (32 queries x T <= 32);
+// beyond that it is built once per chunk in device memory.
+constexpr int kSmemIds = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Table bits of kernel 7 for a chunk of n_ids term slots: 2^bits >= 2 n_ids.
+__host__ __device__ inline int table_bits(int n_ids) {
+  int bits = 1;
+  while ((1 << bits) < 2 * n_ids) ++bits;
+  return bits;
+}
+
+// int32 words of one chunk's table: keys, dense ids, then m [n_ids][kQC].
+__host__ __device__ inline int64_t table_words(int bits, int n_ids) {
+  return 2 * ((int64_t)1 << bits) + (int64_t)n_ids * kQC;
+}
 
 __device__ __forceinline__ float keyed(float s, float c) {
   return (c > 0.f && s >= 0.f) ? s : -1.f;
@@ -91,37 +121,102 @@ __device__ __forceinline__ void store_tile(const float (*tile)[kDocs], int nq,
       out[(int64_t)(q0 + q) * ld_out + n_docs_pad] = -1.f;
 }
 
-// Kernel 7.  kSmemQ: T <= kMaxT, query term ids and weights staged in
-// shared memory.  Only real postings (term >= 0) are read, so a query pad
-// (-1) never matches.
-template <bool kSmemQ>
+// The distinct term ids of one query chunk and their weights: an
+// open-addressing table (uid_table.cuh's hash and lookup, load <= 1/2) of
+// 2^bits keys and 2^bits dense ids u, and m[u * kQC + q], the weight
+// sum_t qtf[q, t] * (tids[q, t] == id_u) of query q0 + q, summed in t order as
+// the TPU kernel's per-query match does.  Built once per block (shared
+// memory) or once per chunk by build_tables_kernel (device memory).  Every
+// thread of the block calls it; it ends with a barrier.
+__device__ __forceinline__ void build_chunk_table(
+    const int32_t* __restrict__ tids, const float* __restrict__ qtf, int nq,
+    int T, int bits, int32_t* keys, int32_t* slots, float* m, int* count) {
+  const int size = 1 << bits;
+  for (int i = threadIdx.x; i < size; i += blockDim.x) keys[i] = uid_table::kEmpty;
+  if (threadIdx.x == 0) *count = 0;
+  __syncthreads();
+  const uint32_t mask = (uint32_t)size - 1u;
+  for (int i = threadIdx.x; i < nq * T; i += blockDim.x) {
+    const int32_t key = tids[i];
+    if (key < 0) continue;  // query pads never match
+    uint32_t h = uid_table::hash_slot(key, bits);
+    while (true) {
+      const int32_t prev = atomicCAS(keys + h, uid_table::kEmpty, key);
+      if (prev == uid_table::kEmpty) {
+        slots[h] = atomicAdd(count, 1);
+        break;
+      }
+      if (prev == key) break;  // a repeated id: one entry
+      h = (h + 1u) & mask;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < *count * kQC; i += blockDim.x) m[i] = 0.f;
+  __syncthreads();
+  for (int q = threadIdx.x; q < nq; q += blockDim.x)
+    for (int j = 0; j < T; ++j) {
+      const int32_t key = tids[q * T + j];
+      if (key >= 0)
+        m[uid_table::lookup(keys, slots, bits, key) * kQC + q] += qtf[q * T + j];
+    }
+  __syncthreads();
+}
+
+// Device-memory tables of kernel 7, one block per query chunk, for chunks
+// whose distinct ids would not fit shared memory.
+__global__ void __launch_bounds__(kThreads) build_tables_kernel(
+    const int32_t* __restrict__ tids, const float* __restrict__ qtf, int B,
+    int T, int bits, int32_t* tables, int64_t stride) {
+  __shared__ int count;
+  const int q0 = blockIdx.x * kQC;
+  int32_t* keys = tables + blockIdx.x * stride;
+  int32_t* slots = keys + (1 << bits);
+  build_chunk_table(tids + (int64_t)q0 * T, qtf + (int64_t)q0 * T,
+                    min(kQC, B - q0), T, bits, keys, slots,
+                    reinterpret_cast<float*>(slots + (1 << bits)), &count);
+}
+
+// Kernel 7.  Each real posting is looked up once in its chunk's table of
+// distinct query term ids (kSmemTable: built by the block in shared memory;
+// otherwise build_tables_kernel's, read through L1/L2); for each match, in
+// lane order, lane q adds m[u][q] * impact.  The walk is kernel 8's, and
+// every (query, doc) sum is the same f32 sum in posting order as before.
+// Only real postings (term >= 0) are read.
+template <bool kSmemTable>
 __global__ void __launch_bounds__(kThreads) blocked_kernel(
     const int32_t* __restrict__ terms, const float* __restrict__ impact,
     const int32_t* __restrict__ doc_off, int p_blk,
     const int32_t* __restrict__ tids, const float* __restrict__ qtf, int B,
-    int T, float* __restrict__ out, int64_t ld_out, int n_docs_pad) {
-  __shared__ int32_t s_tid[kSmemQ ? kQC * kMaxT : 1];
-  __shared__ float s_qtf[kSmemQ ? kQC * kMaxT : 1];
-  __shared__ float s_out[kQC][kDocs];
-  __shared__ int s_next;
+    int T, int bits, const int32_t* __restrict__ g_tables, int64_t g_stride,
+    float* __restrict__ out, int64_t ld_out, int n_docs_pad) {
+  // dynamic: the [min(B, 32), 128] output tile, then (kSmemTable) the table
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_next, s_count;
+  float(*s_out)[kDocs] = reinterpret_cast<float(*)[kDocs]>(smem);
   const int row = blockIdx.x;
   const int q0 = blockIdx.y * kQC;
   const int nq = min(kQC, B - q0);
   const int lane = threadIdx.x & 31;
-  if constexpr (kSmemQ) {
-    for (int i = threadIdx.x; i < nq * T; i += kThreads) {
-      s_tid[i] = tids[(int64_t)q0 * T + i];
-      s_qtf[i] = qtf[(int64_t)q0 * T + i];
-    }
-  }
   if (threadIdx.x == 0) s_next = 0;
-  __syncthreads();
-  const int32_t* q_tid = kSmemQ ? s_tid : tids + (int64_t)q0 * T;
-  const float* q_w = kSmemQ ? s_qtf : qtf + (int64_t)q0 * T;
+  const int32_t* keys;
+  const int32_t* slots;
+  const float* m;
+  if constexpr (kSmemTable) {
+    int32_t* k = reinterpret_cast<int32_t*>(smem + min(kQC, B) * kDocs * 4);
+    int32_t* sl = k + (1 << bits);
+    float* mm = reinterpret_cast<float*>(sl + (1 << bits));
+    build_chunk_table(tids + (int64_t)q0 * T, qtf + (int64_t)q0 * T, nq, T,
+                      bits, k, sl, mm, &s_count);  // ends with a barrier
+    keys = k, slots = sl, m = mm;
+  } else {
+    keys = g_tables + blockIdx.y * g_stride;
+    slots = keys + (1 << bits);
+    m = reinterpret_cast<const float*>(slots + (1 << bits));
+    __syncthreads();
+  }
   const int32_t* r_terms = terms + (int64_t)row * p_blk;
   const float* r_imp = impact + (int64_t)row * p_blk;
   const int32_t* off = doc_off + (int64_t)row * (kDocs + 1);
-  const int n_ids = nq * T;
 
   for (int d = next_doc(&s_next, lane); d < kDocs;
        d = next_doc(&s_next, lane)) {
@@ -129,26 +224,19 @@ __global__ void __launch_bounds__(kThreads) blocked_kernel(
     float s = 0.f, c = 0.f;  // lane q: query q0 + q
     for (int base = off[d]; base < end; base += 32) {
       const int p = base + lane;
-      int32_t t = -1;
-      bool hit = false;
-      if (p < end) {
-        t = __ldg(r_terms + p);
-        for (int i = 0; i < n_ids && !hit; ++i) hit = (t == q_tid[i]);
-      }
-      unsigned mask = __ballot_sync(kFull, hit);
-      const float x = hit ? __ldg(r_imp + p) : 0.f;
+      const int u = p < end
+                        ? uid_table::lookup(keys, slots, bits, __ldg(r_terms + p))
+                        : -1;
+      unsigned mask = __ballot_sync(kFull, u >= 0);
+      const float x = u >= 0 ? __ldg(r_imp + p) : 0.f;
       while (mask) {  // matched postings, in posting order
         const int src = __ffs(mask) - 1;
         mask &= mask - 1;
-        const int32_t tt = __shfl_sync(kFull, t, src);
+        const int uu = __shfl_sync(kFull, u, src);
         const float xx = __shfl_sync(kFull, x, src);
-        if (lane < nq) {
-          float m = 0.f;
-          for (int j = 0; j < T; ++j)
-            m += (tt == q_tid[lane * T + j]) ? q_w[lane * T + j] : 0.f;
-          s += m * xx;
-          c += (m > 0.f) ? 1.f : 0.f;
-        }
+        const float mq = m[uu * kQC + lane];  // 0 past the chunk's queries
+        s += mq * xx;
+        c += (mq > 0.f) ? 1.f : 0.f;
       }
     }
     if (lane < nq) s_out[lane][d] = keyed(s, c);
@@ -237,22 +325,44 @@ __global__ void __launch_bounds__(kThreads) blocked_udedup_kernel(
 extern "C" int mse_bm25_blocked(const void* terms, const void* impact,
                                 const void* doc_off, int n_blocks, int p_blk,
                                 const void* tids, const void* qtf, int B, int T,
-                                void* out, int64_t ld_out, void* stream) {
-  if (T < 1 || ld_out < (int64_t)n_blocks * kDocs + 1)
+                                void* out, int64_t ld_out, void* tables,
+                                int64_t tables_len, void* stream) {
+  if (B < 1 || T < 1 || ld_out < (int64_t)n_blocks * kDocs + 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_blocks, (B + kQC - 1) / kQC);
+  const int n_chunks = (B + kQC - 1) / kQC;
+  const int nq_max = B < kQC ? B : kQC;
+  const int n_ids = nq_max * T;  // a chunk's term slots
+  const int bits = table_bits(n_ids);
+  const dim3 grid(n_blocks, n_chunks);
   const cudaStream_t s = (cudaStream_t)stream;
   const int n_docs_pad = n_blocks * kDocs;
-  if (T <= kMaxT)
-    blocked_kernel<true><<<grid, kThreads, 0, s>>>(
+  const size_t tile = (size_t)nq_max * kDocs * 4;
+  if (n_ids <= kSmemIds) {
+    const size_t smem = tile + table_words(bits, n_ids) * 4;
+    auto kern = blocked_kernel<true>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kern<<<grid, kThreads, smem, s>>>(
         (const int32_t*)terms, (const float*)impact, (const int32_t*)doc_off,
-        p_blk, (const int32_t*)tids, (const float*)qtf, B, T, (float*)out,
-        ld_out, n_docs_pad);
-  else
-    blocked_kernel<false><<<grid, kThreads, 0, s>>>(
-        (const int32_t*)terms, (const float*)impact, (const int32_t*)doc_off,
-        p_blk, (const int32_t*)tids, (const float*)qtf, B, T, (float*)out,
-        ld_out, n_docs_pad);
+        p_blk, (const int32_t*)tids, (const float*)qtf, B, T, bits, nullptr,
+        0, (float*)out, ld_out, n_docs_pad);
+    return (int)cudaGetLastError();
+  }
+  const int64_t stride = table_words(bits, n_ids);
+  if (tables == nullptr || tables_len < stride * n_chunks)
+    return (int)cudaErrorInvalidValue;
+  build_tables_kernel<<<n_chunks, kThreads, 0, s>>>(
+      (const int32_t*)tids, (const float*)qtf, B, T, bits, (int32_t*)tables,
+      stride);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  blocked_kernel<false><<<grid, kThreads, tile, s>>>(
+      (const int32_t*)terms, (const float*)impact, (const int32_t*)doc_off,
+      p_blk, (const int32_t*)tids, (const float*)qtf, B, T, bits,
+      (const int32_t*)tables, stride, (float*)out, ld_out, n_docs_pad);
   return (int)cudaGetLastError();
 }
 

@@ -57,6 +57,24 @@ BLOCKED_UDEDUP_KERNEL = cuda_lib.register(
 )
 
 
+# Kernel 7 keeps a query chunk's distinct-id table in shared memory up to
+# this many term slots (32 queries x T); see csrc/bm25_blocked.cu.
+SMEM_TABLE_IDS = 1024
+
+
+def blocked_table_words(B: int, T: int) -> int:
+    """int32 words of device-memory scratch kernel 7 needs for B queries
+    of T term slots: 0 when each chunk's table fits shared memory, else
+    one table per 32-query chunk (2^bits keys, 2^bits ids with
+    2^bits >= 2 x term slots, and a [term slots, 32] f32 weight table),
+    as ``mse_bm25_blocked`` checks."""
+    n_ids = min(B, 32) * T
+    if n_ids <= SMEM_TABLE_IDS:
+        return 0
+    bits = max(1, (2 * n_ids - 1).bit_length())
+    return -(-B // 32) * (2 * (1 << bits) + n_ids * 32)
+
+
 def blocked_udedup_gate(u_pad: int, B: int, T: int) -> bool:
     """Whether a batch takes the U-dedup kernel on the blocked layout: the
     reference engine's gate ``4 * u_pad <= B * T`` (fitted on a TPU v5e
@@ -168,12 +186,15 @@ def bm25_score_blocked(blk: BlockedPostings, term_ids, qtf) -> torch.Tensor:
         raise ValueError(f"tids/qtf {tuple(term_ids.shape)}/{tuple(qtf.shape)}")
     out = torch.empty(B, blk.n_docs_pad + 1, dtype=torch.float32, device=dev)
     if B:
+        words = blocked_table_words(B, T)
+        tables = (torch.empty(words, dtype=torch.int32, device=dev)
+                  if words else None)
         BLOCKED_KERNEL.launch(
             dev,
             blk.terms.data_ptr(), blk.impact.data_ptr(),
             blk.doc_off.data_ptr(), blk.n_blocks, blk.p_blk,
             term_ids.data_ptr(), qtf.data_ptr(), B, T,
-            out.data_ptr(), out.shape[1],
+            out.data_ptr(), out.shape[1], *table_args(tables),
         )
     return out
 

@@ -57,7 +57,7 @@ SIGNATURES = {
         )
     },
     "mse_bm25_blocked": [
-        _P, _P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P,
+        _P, _P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P, _I64, _P,
     ],
     "mse_bm25_blocked_udedup": [
         _P, _P, _P, _I32, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,

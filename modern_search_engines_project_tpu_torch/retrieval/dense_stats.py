@@ -86,6 +86,8 @@ def bucket_stats(emb: torch.Tensor, qvec: torch.Tensor):
     dev = emb.device
     cuda_lib.check(emb, "bank", torch.bfloat16, dev, 3)
     n, cnt, dim = emb.shape
+    if n > 0xFFFF:
+        raise ValueError(f"bank: {n} slots, the kernel packs a slot in 16 bits")
     if dim % DIM_MULTIPLE or emb.data_ptr() % 16:
         raise ValueError(
             f"bank: dim {dim} must be a multiple of {DIM_MULTIPLE} and the "
@@ -93,6 +95,8 @@ def bucket_stats(emb: torch.Tensor, qvec: torch.Tensor):
         )
     q = qvec.to(torch.bfloat16).contiguous()
     cuda_lib.check(q, "queries", torch.bfloat16, dev, 2)
+    if q.data_ptr() % 16:
+        q = q.clone()  # the kernel copies query rows 16 bytes at a time
     if q.shape[1] != dim:
         raise ValueError(f"queries {tuple(q.shape)} vs bank {tuple(emb.shape)}")
     B = q.shape[0]

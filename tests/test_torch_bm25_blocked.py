@@ -119,11 +119,17 @@ def test_layout_matches_reference(built):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("dup", [False, True])
 @pytest.mark.parametrize("T", [4, 8, 16])
 @pytest.mark.parametrize("B", [1, 8, 40])
-def test_plain_kernel_matches_reference(built, B, T):
+def test_plain_kernel_matches_reference(built, B, T, dup):
+    """``dup``: every query holds one term id in two of its slots, whose
+    weights add up (the weight table of the CUDA kernel keeps one entry)."""
     csr, n_terms, arrays, blk, _ = built
     tids, qtf = _queries(B * 100 + T, B, T, n_terms)
+    if dup:
+        tids[:, 1] = tids[:, 0] = np.arange(B) % (n_terms - 1) + 1
+        qtf[:, :2] = (2.0, 1.0)
     got = port.blocked_plain(
         blk, torch.as_tensor(tids), torch.as_tensor(qtf)
     )

@@ -175,15 +175,36 @@ def test_udedup_kernel_takes_unsorted_uids(slots, cuda):
     torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize(
-    "n,cnt,B,dim", [(1, 100, 1, 64), (3, 1000, 16, 768), (10, 257, 64, 768),
-                    (2, 8, 17, 96)]
-)
+# (n, cnt, dim) of the stats kernel's edges: one doc, a doc tile of 64
+# and one doc either side of it, n = 1 / 2 / 7 / 10, dims 32 / 64 / 96 /
+# 768; buckets of 8,500+ docs, which take the 64-doc blocks (the smaller
+# ones take 16-doc blocks that split each stage's dims over 4 warps); and
+# dims whose query tile does not fit shared memory (the queries are then
+# read from device memory), on both block shapes
+STATS_SHAPES = [
+    (1, 1, 32), (1, 100, 64), (2, 63, 64), (2, 8, 96), (7, 64, 768),
+    (10, 65, 32), (3, 1000, 768), (10, 257, 768), (10, 1000, 64),
+    (1, 8500, 768), (2, 8500, 96), (3, 9000, 32),
+    (2, 70, 16384), (1, 8500, 12288),
+]
+
+
+@pytest.mark.parametrize("B", [1, 5, 8, 9, 17, 33, 64, 65])
+@pytest.mark.parametrize("n,cnt,dim", STATS_SHAPES)
 def test_stats_kernel_matches_plain(cuda, n, cnt, B, dim):
-    rng = np.random.default_rng(n * 1000 + cnt)
+    """Kernel 4 against its plain version (slots by value, 1e-4), on a bank
+    whose slot 1 repeats slot 0 for a third of the docs: there the sims
+    are equal bit for bit, so the tie must keep the lowest slot exactly
+    (w1 never 1; where w1 is 0, the duplicate is v2 at slot 1)."""
+    rng = np.random.default_rng(n * 1000 + cnt + dim)
+    # sims of the size the 1e-4 is stated for (768 standard normal
+    # products): wider banks are scaled down to the same spread
     e = rng.standard_normal((n, cnt, dim)).astype(np.float32)
+    e *= min(1.0, (768 / dim) ** 0.5)
+    dup = np.zeros(cnt, bool)
     if n > 1:
-        e[1, : cnt // 3] = e[0, : cnt // 3]  # exact ties between slots
+        dup[: max(cnt // 3, 1)] = True
+        e[1, dup] = e[0, dup]  # exact ties between slots
     emb = torch.as_tensor(e, device=cuda).to(torch.bfloat16)
     q = torch.as_tensor(rng.standard_normal((B, dim)), device=cuda).float()
     before = STATS_KERNEL.launches
@@ -192,12 +213,42 @@ def test_stats_kernel_matches_plain(cuda, n, cnt, B, dim):
     assert STATS_KERNEL.launches == before + 1
     want = stats_plain(emb, q)
     assert stats_max_abs_err(got, want, bucket_sims(emb, q)) <= STATS_ATOL
+    if n > 1:
+        v1, v2, w1, w2, _ = (x[:, torch.as_tensor(dup, device=cuda)]
+                             for x in got)
+        assert not (w1 == 1).any()
+        first = w1 == 0
+        assert (w2[first] == 1).all() and torch.equal(v2[first], v1[first])
 
 
-@pytest.mark.parametrize("B,T", [(1, 4), (1, 8), (16, 8), (40, 16), (64, 8)])
-def test_blocked_kernel_matches_plain_and_slots(both_layouts, cuda, B, T):
-    (vt, vi, stream, cu), blk, n_terms, rng = both_layouts
+def _blocked_queries(rng, B, T, n_terms):
+    """Random queries with the cases kernel 7's table must get right: query
+    0 holds one term id in two slots (its weight is the sum), query 1
+    shares half its terms with query 0, and query 2 is all pads."""
     tids, qtf = _queries(rng, B, T, n_terms)
+    tids[0, 0] = tids[0, 1] = 1 + rng.integers(n_terms - 1)
+    qtf[0, :2] = (2.0, 3.0)
+    if B > 1:
+        tids[1, : T // 2] = tids[0, : T // 2]
+        qtf[1, : T // 2] = np.where(tids[1, : T // 2] >= 0, 1.0, 0.0)
+    if B > 2:
+        tids[2], qtf[2] = -1, 0.0
+    return tids, qtf
+
+
+@pytest.mark.parametrize(
+    "B,T",
+    [(1, 4), (1, 8), (16, 8), (40, 16), (64, 8), (31, 8), (33, 8), (1, 40),
+     (31, 40), (33, 40), (64, 40)],
+)
+def test_blocked_kernel_matches_plain_and_slots(both_layouts, cuda, B, T):
+    """Kernel 7 against its plain version (1e-5) and, bit for bit, against
+    slot kernel 1: both sum each doc's matched products in posting order
+    with m summed in t order.  T = 40 at B >= 26 holds more term slots
+    than kernel 7's shared-memory table (32 x 40 > 1024): the tables are
+    built in device memory."""
+    (vt, vi, stream, cu), blk, n_terms, rng = both_layouts
+    tids, qtf = _blocked_queries(rng, B, T, n_terms)
     t = torch.as_tensor(tids, device=cuda)
     q = torch.as_tensor(qtf, device=cuda)
     before = BLOCKED_KERNEL.launches
@@ -206,10 +257,12 @@ def test_blocked_kernel_matches_plain_and_slots(both_layouts, cuda, B, T):
     assert BLOCKED_KERNEL.launches == before + 1
     want = blocked_plain(blk, t, q)
     torch.testing.assert_close(got, want, atol=BM25_ATOL, rtol=0)
+    assert torch.equal(got < 0, want < 0)
     slot = _slots_key(slots_keyed(stream, vt, vi, t, q), cu, B)
-    torch.testing.assert_close(got, slot, atol=BM25_ATOL, rtol=0)
-    assert torch.equal(got < 0, slot < 0)
+    assert torch.equal(got, slot)
     assert (got >= 0).any() and (got == -1).any()
+    if B > 2:
+        assert (got[2] == -1).all()  # the all-pad query matches nothing
 
 
 @pytest.mark.parametrize("B,T", [(8, 4), (16, 8), (40, 16), (64, 16)])

@@ -36,9 +36,15 @@ def _assert_stats(got, want, tol=1e-5):
         )
 
 
-@pytest.mark.parametrize("n,cnt", BUCKETS)
-def test_plain_matches_pallas_kernel(n, cnt):
-    q, e = _bucket(n, cnt)
+@pytest.mark.parametrize(
+    "n,cnt,B",
+    [(n, cnt, 8) for n, cnt in BUCKETS]
+    + [(10, 200, 1), (10, 77, 17), (3, 300, 65), (10, 130, 65)],
+)
+def test_plain_matches_pallas_kernel(n, cnt, B):
+    """Also at the CUDA kernel's edges: cnt not a multiple of 128, n = 10,
+    and B = 1 / 17 / 65 (one query tile of 8, one past 16, one past 64)."""
+    q, e = _bucket(n, cnt, B=B)
     want = bucket_stats_pallas(jnp.asarray(e), jnp.asarray(q), interpret=True)
     got = dense_stats.stats_plain(torch.as_tensor(e), torch.as_tensor(q))
     _assert_stats([x.numpy() for x in got], want)
