@@ -177,6 +177,7 @@ def check_kernels(eng, dfs, rng):
     # matches a query term (see stream_bytes_for below).
     table_bytes = st.terms.numel() * 4
     table_bytes += st.group_off.numel() * 8 + st.group_rows.numel() * 4
+    table_bytes += st.group_order.numel() * 4
     n_real = int((st.terms >= 0).sum().item())
     rows = {}
 

@@ -83,16 +83,10 @@ constexpr int kQC = 32;     // queries per block: lane q folds query q0 + q
 constexpr int kSmemIds = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Table bits of kernel 7 for a chunk of n_ids term slots: 2^bits >= 2 n_ids.
-__host__ __device__ inline int table_bits(int n_ids) {
-  int bits = 1;
-  while ((1 << bits) < 2 * n_ids) ++bits;
-  return bits;
-}
-
-// int32 words of one chunk's table: keys, dense ids, then m [n_ids][kQC].
+// int32 words of one chunk's table of kernel 7 (uid_table.cuh): keys, dense
+// ids, then m [n_ids][kQC].
 __host__ __device__ inline int64_t table_words(int bits, int n_ids) {
-  return 2 * ((int64_t)1 << bits) + (int64_t)n_ids * kQC;
+  return uid_table::query_table_words(bits, n_ids, kQC);
 }
 
 __device__ __forceinline__ float keyed(float s, float c) {
@@ -121,64 +115,10 @@ __device__ __forceinline__ void store_tile(const float (*tile)[kDocs], int nq,
       out[(int64_t)(q0 + q) * ld_out + n_docs_pad] = -1.f;
 }
 
-// The distinct term ids of one query chunk and their weights: an
-// open-addressing table (uid_table.cuh's hash and lookup, load <= 1/2) of
-// 2^bits keys and 2^bits dense ids u, and m[u * kQC + q], the weight
-// sum_t qtf[q, t] * (tids[q, t] == id_u) of query q0 + q, summed in t order as
-// the TPU kernel's per-query match does.  Built once per block (shared
-// memory) or once per chunk by build_tables_kernel (device memory).  Every
-// thread of the block calls it; it ends with a barrier.
-__device__ __forceinline__ void build_chunk_table(
-    const int32_t* __restrict__ tids, const float* __restrict__ qtf, int nq,
-    int T, int bits, int32_t* keys, int32_t* slots, float* m, int* count) {
-  const int size = 1 << bits;
-  for (int i = threadIdx.x; i < size; i += blockDim.x) keys[i] = uid_table::kEmpty;
-  if (threadIdx.x == 0) *count = 0;
-  __syncthreads();
-  const uint32_t mask = (uint32_t)size - 1u;
-  for (int i = threadIdx.x; i < nq * T; i += blockDim.x) {
-    const int32_t key = tids[i];
-    if (key < 0) continue;  // query pads never match
-    uint32_t h = uid_table::hash_slot(key, bits);
-    while (true) {
-      const int32_t prev = atomicCAS(keys + h, uid_table::kEmpty, key);
-      if (prev == uid_table::kEmpty) {
-        slots[h] = atomicAdd(count, 1);
-        break;
-      }
-      if (prev == key) break;  // a repeated id: one entry
-      h = (h + 1u) & mask;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < *count * kQC; i += blockDim.x) m[i] = 0.f;
-  __syncthreads();
-  for (int q = threadIdx.x; q < nq; q += blockDim.x)
-    for (int j = 0; j < T; ++j) {
-      const int32_t key = tids[q * T + j];
-      if (key >= 0)
-        m[uid_table::lookup(keys, slots, bits, key) * kQC + q] += qtf[q * T + j];
-    }
-  __syncthreads();
-}
-
-// Device-memory tables of kernel 7, one block per query chunk, for chunks
-// whose distinct ids would not fit shared memory.
-__global__ void __launch_bounds__(kThreads) build_tables_kernel(
-    const int32_t* __restrict__ tids, const float* __restrict__ qtf, int B,
-    int T, int bits, int32_t* tables, int64_t stride) {
-  __shared__ int count;
-  const int q0 = blockIdx.x * kQC;
-  int32_t* keys = tables + blockIdx.x * stride;
-  int32_t* slots = keys + (1 << bits);
-  build_chunk_table(tids + (int64_t)q0 * T, qtf + (int64_t)q0 * T,
-                    min(kQC, B - q0), T, bits, keys, slots,
-                    reinterpret_cast<float*>(slots + (1 << bits)), &count);
-}
-
 // Kernel 7.  Each real posting is looked up once in its chunk's table of
-// distinct query term ids (kSmemTable: built by the block in shared memory;
-// otherwise build_tables_kernel's, read through L1/L2); for each match, in
+// distinct query term ids (uid_table::build_query_table; kSmemTable: built
+// by the block in shared memory, otherwise by build_query_tables_kernel in
+// device memory, read through L1/L2); for each match, in
 // lane order, lane q adds m[u][q] * impact.  The walk is kernel 8's, and
 // every (query, doc) sum is the same f32 sum in posting order as before.
 // Only real postings (term >= 0) are read.
@@ -205,8 +145,9 @@ __global__ void __launch_bounds__(kThreads) blocked_kernel(
     int32_t* k = reinterpret_cast<int32_t*>(smem + min(kQC, B) * kDocs * 4);
     int32_t* sl = k + (1 << bits);
     float* mm = reinterpret_cast<float*>(sl + (1 << bits));
-    build_chunk_table(tids + (int64_t)q0 * T, qtf + (int64_t)q0 * T, nq, T,
-                      bits, k, sl, mm, &s_count);  // ends with a barrier
+    uid_table::build_query_table(tids + (int64_t)q0 * T,
+                                 qtf + (int64_t)q0 * T, nq, T, bits, k, sl,
+                                 mm, kQC, &s_count);  // ends with a barrier
     keys = k, slots = sl, m = mm;
   } else {
     keys = g_tables + blockIdx.y * g_stride;
@@ -332,7 +273,7 @@ extern "C" int mse_bm25_blocked(const void* terms, const void* impact,
   const int n_chunks = (B + kQC - 1) / kQC;
   const int nq_max = B < kQC ? B : kQC;
   const int n_ids = nq_max * T;  // a chunk's term slots
-  const int bits = table_bits(n_ids);
+  const int bits = uid_table::table_bits(n_ids);
   const dim3 grid(n_blocks, n_chunks);
   const cudaStream_t s = (cudaStream_t)stream;
   const int n_docs_pad = n_blocks * kDocs;
@@ -354,9 +295,9 @@ extern "C" int mse_bm25_blocked(const void* terms, const void* impact,
   const int64_t stride = table_words(bits, n_ids);
   if (tables == nullptr || tables_len < stride * n_chunks)
     return (int)cudaErrorInvalidValue;
-  build_tables_kernel<<<n_chunks, kThreads, 0, s>>>(
-      (const int32_t*)tids, (const float*)qtf, B, T, bits, (int32_t*)tables,
-      stride);
+  uid_table::build_query_tables_kernel<<<n_chunks, kThreads, 0, s>>>(
+      (const int32_t*)tids, (const float*)qtf, B, T, kQC, bits,
+      (int32_t*)tables, stride);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   blocked_kernel<false><<<grid, kThreads, tile, s>>>(

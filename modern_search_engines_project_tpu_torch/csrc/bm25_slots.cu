@@ -13,262 +13,731 @@
 //   score = sum_rows m * impact,  count = sum_rows (m > 0)
 //   out[b, g*512 + c] = (count > 0 && score >= 0) ? score : -1     ("keyed")
 // The output column order is the class-concatenated order of the groups
-// (the caller un-permutes it with col_unperm).
+// (the caller un-permutes it with col_unperm).  The U-dedup TPU kernels
+// take m from a (B,U)@(U,COLS) product of a 0/1 match matrix; the real
+// uids are distinct, so a posting matches at most one u and m = w[b, u*]
+// ("sublane" converts w to bf16 and "i8" to int8 first, as the TPU kernels
+// do; both are exact for the small-integer weights dedup_query_terms
+// makes).
 //
-// Design.  The TPU walks a group's rows as a sequential grid axis carrying
-// the sum in VMEM scratch; here one block owns one whole group (512
-// threads, one doc column each) and loops over all its rows, so nothing is
-// carried between blocks and the keyed score is written once.  Each
-// thread keeps the sums of up to 8 queries in registers; grid.y covers
-// the batch in chunks of 8.  Reads of a row are coalesced (512 consecutive
-// columns).
+// Bound on this card: bytes.  The function must read each slot's 4-byte
+// term id once, the impact of each MATCHED posting (2-6% of them at the
+// bench shapes), the group tables and the queries, and write the keyed
+// output once.  At the 100k-doc bench index that is 33.8 MB of term ids,
+// and with the output (0.4 / 6.4 / 25.7 MB) 0.0104 / 0.0123 / 0.0184 ms at
+// B = 1 (T = 8) / 16 (U = 128) / 64 (U = 256) over the published
+// 3.35 TB/s (chip_smoke.py counts it from the run's own inputs).  The
+// operations, one lookup per real posting and a multiply-add and a compare
+// per query per matched posting, stay below that.
 //
-// The U-dedup variants match each posting against the batch's DISTINCT
-// term ids once, then recover every query's weight from w.  The TPU does
-// that with a (B,U)@(U,COLS) matmul of a 0/1 match matrix; since the real
-// uids are distinct, a posting matches at most one u, so the product is
-// exactly w[b, u*] — found here with a hash table of the uids
-// (uid_table.cuh: O(1) probes instead of U compares).  "sublane" converts w
-// to bf16 and "i8" to int8 before use, as the TPU kernels do; both are
-// exact for the small-integer weights dedup_query_terms produces, so the
-// two give identical keyed scores (one templated body).
+// Design.  The first kernels walked each doc column row by row, one thread
+// a column: a term-id load, then a dependent impact load, each a device-
+// memory round trip, over up to 128 rows, with one 4-byte load in flight a
+// thread (latency-bound, 7-14x the bound), and the U-dedup kernels read
+// and hashed every posting once per 8 queries.  Here one body serves all
+// three kernels:
+//   * Work items.  An item is 128 columns of one group (a rectangle of the
+//     flat row-major stream, since every group starts at a multiple of 512
+//     elements).  Blocks of 512 threads are persistent, as many as fit on
+//     the card, and walk the items ranked by their group's depth, deepest
+//     first (group_order), in snake order (block b takes items b, 2G-1-b,
+//     2G+b, ...), so the long items start first and every block gets a like
+//     share of rows.  A block stages its item list in shared memory first.
+//   * Term ids arrive asynchronously.  One thread keeps a ring of kStages
+//     stages of 16 rows x 128 columns filled with TMA boxes of 8 rows of a
+//     2-d tensor map over the whole stream ([rows, 512] int32; tma.cuh),
+//     each stage completing on its own mbarrier, kLead stages ahead of the
+//     stage being looked up.  A group's depth is a multiple of 8 rows, so
+//     its last stage copies only its own boxes.
+//   * One lookup per posting for the whole block.  Warp w looks up row w of
+//     an arrived stage, 4 columns a thread from one 16-byte load, against a
+//     bit filter of the block's distinct ids (one bit an id under a hash of
+//     its own, 4,096-32,768 bits): most postings match no query term, and
+//     their lookup ends there, with one more shared-memory load.  Only a set
+//     bit probes the table (uid_table.cuh).  A match overwrites its term id
+//     with its position u, sets its row's bit in the column's row mask and
+//     starts an asynchronous 4-byte copy of its impact (cp.async) into an
+//     impact tile, so only matched impacts are read, all of a stage's
+//     together.  The U-dedup kernels look each posting up once for all of
+//     the block's queries (up to 64; more in further query chunks, grid
+//     blocks of their own), not once per 8.
+//   * The fold, kLag stages behind.  Thread (query group qg, column c) reads
+//     its column's row mask and visits only the matched rows, in row order:
+//     the weight row of u for its QPT queries comes in one to four shared-
+//     memory loads, from the U-dedup weights held transposed [U][chunk]
+//     (int8 for "i8", bf16 for "sublane"; rows padded to an odd number of
+//     16-byte units, so different ids start in different banks) with a bit
+//     mask of the queries each id is present in, or from kernel 1's m[u][q]
+//     (f32, uid_table::build_query_table, the table kernel 7 builds).
+//   * Bits.  Each (query, column) is the f32 sum acc += m * x in ascending
+//     row order, m summed over t in slot order (kernel 1) or w cast as the
+//     TPU kernel casts it (kernels 2-3), as the first kernels summed it; a
+//     row that matches no query adds 0 * x, which changes nothing, so
+//     skipping it keeps the bits (kernel 7 equals kernel 1, and kernel 6
+//     equals kernels 2-3, bit for bit).
 //
-// Any T and any U.  Up to kMaxT query term slots (plain) and up to
-// uid_table::kSmemMaxU distinct ids (U-dedup) are staged in shared memory,
-// as are the U-dedup weights; beyond that the kernels read the query term
-// ids, the weight rows and a hash table built in device memory directly
-// (cached in L1/L2): a weight is read only for a posting that matches.
+// What bounds them now (kernel_times.py, NVIDIA H100 80GB HBM3, 700 W):
+// 0.028 ms at B = 1, 0.036 ms at B = 16 / U = 128, 0.057 ms (i8) at
+// B = 64 / U = 256: 2.7 / 2.9 / 3.1x the bound.  The term-id stream
+// alone takes most of it, short of the card's bandwidth; on top come the
+// set-up of the tables and the lookups: each stage is a chain of dependent
+// shared-memory loads (term, filter word, probes of a set bit) behind one
+// block barrier.  At B = 64 the fold adds most: a warp runs its 16-query body
+// once for each matched row of its busiest column, so its lanes wait on
+// the one with most matches.  Registers (-Xptxas -v): 55-56 a thread, no
+// spills, on every shared-memory branch; the two device-memory branches
+// of 64 queries a block (U > 1024, their weights read from w) take 64 and
+// spill 68-80 bytes.
 //
-// Bound on this card: each posting slot is read once (8 bytes); at the
-// 100k-doc bench shape that is ~69 MB per call by the layout's size, so
-// ~21 us at the H100's published 3.35 TB/s.  The plain kernel also does
-// B*T compares per posting, which passes that memory time at large B (it
-// serves only B < 8 in the engine).
+// Any T and any U.  Kernel 1 builds its chunk's table (16 queries) in
+// shared memory up to kMaxT term slots a query; beyond, one small kernel
+// builds each chunk's table in device memory first.  Kernels 2-3 keep the
+// uid table and their weights in shared memory up to uid_table::kSmemMaxU
+// distinct ids (in 16-query chunks when 64 queries' bf16 weights do not
+// fit); beyond, the table is the one uid_table::build_global makes and each
+// matched posting's weights are read from w.  The filter stays in shared
+// memory on every branch.  Shared memory is sized from B, T and U at
+// launch: 66 KB of ring, impact tiles and row masks a block, plus the
+// filter and the tables.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
+#include "tma.cuh"
 #include "uid_table.cuh"
 
 namespace {
 
-constexpr int kCols = 512;     // doc columns per group (SLOT_COLS)
-constexpr int kQB = 8;         // queries per block (grid.y chunks the batch)
-constexpr int kMaxT = 64;      // query term slots staged in shared memory
-constexpr int kMaxU = uid_table::kSmemMaxU;  // distinct ids staged likewise
+constexpr int kCols = 512;        // doc columns per group (SLOT_COLS)
+constexpr int kSliceCols = 128;   // doc columns of one work item
+constexpr int kSlices = kCols / kSliceCols;
+constexpr int kQGroups = 4;       // query groups of a block
+constexpr int kThreads = kSliceCols * kQGroups;
+constexpr int kBoxRows = 8;       // rows of one TMA box (depths are multiples of 8)
+constexpr int kStageRows = 16;    // rows of one ring stage
+constexpr int kStages = 5;        // ring depth
+constexpr int kLag = 1;           // stages between a stage's lookup and its fold
+constexpr int kImpBufs = kLag + 2;  // impact tiles in use or being freed
+constexpr int kLead = kStages - kLag - 1;  // stages in flight ahead of the lookup
+constexpr int kMaskBufs = kLag + 3;  // row masks: in use, and one cleared ahead
+constexpr int kTile = kStageRows * kSliceCols;  // elements of a stage
+static_assert(kThreads / 32 == kStageRows, "a warp looks up one row a stage");
+constexpr int kMaxT = 64;         // kernel 1: term slots a query in shared memory
+constexpr int kMaxU = uid_table::kSmemMaxU;
+constexpr int kPlainQPT = 4;      // kernel 1: 16 queries a block
+constexpr int kMaxRounds = 32;    // items a block (the launch sizes G to fit)
 
-__device__ __forceinline__ float keyed(float s, float c) {
-  return (c > 0.f && s >= 0.f) ? s : -1.f;
+// Bytes of one weight row in shared memory: chunk weights rounded up to an
+// odd number of 16-byte units, so that the rows of different ids start in
+// different bank groups.
+__host__ __device__ constexpr int row_bytes(int chunk_bytes) {
+  return ((chunk_bytes + 15) / 16 % 2 ? (chunk_bytes + 15) / 16
+                                      : (chunk_bytes + 15) / 16 + 1) * 16;
 }
 
-// kSmemQ: the query term ids and weights (T <= kMaxT) are staged in shared
-// memory; otherwise read from device memory.  Pad slots are skipped before
-// the match, so a query pad (-1) never meets a posting pad.
-template <bool kSmemQ>
-__global__ void __launch_bounds__(kCols) slots_kernel(
-    const int32_t* __restrict__ terms, const float* __restrict__ impact,
-    const int64_t* __restrict__ group_off, const int32_t* __restrict__ group_rows,
-    const int32_t* __restrict__ tids, const float* __restrict__ qtf, int B, int T,
+// The membership filter in front of a table of 2^bits slots: 2^fbits bits,
+// 64 a table slot (about 128 an id), at least 2^12 and at most 2^15 (4 KB).
+__host__ __device__ constexpr int filter_bits(int bits) {
+  return bits + 6 > 15 ? 15 : bits + 6 < 12 ? 12 : bits + 6;
+}
+
+// The filter's bit of a term id: a multiplicative hash of its own.
+__device__ __forceinline__ uint32_t filter_bit(int32_t key, int fbits) {
+  return ((uint32_t)key * 0x85EBCA77u) >> (32 - fbits);
+}
+
+// Dynamic shared memory of the ring, the impact tiles and the row masks,
+// plus alignment.
+constexpr size_t kStreamSmem =
+    (size_t)(kStages + kImpBufs) * kTile * 4 + kMaskBufs * kSliceCols * 4 + 128;
+
+// ... and with the filter of a table of 2^bits slots.
+inline size_t stream_smem(int bits) {
+  return kStreamSmem + ((size_t)1 << (filter_bits(bits) - 3));
+}
+
+__device__ __forceinline__ float keyed(float s, bool present) {
+  return (present && s >= 0.f) ? s : -1.f;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   tma::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Weight types: f32 m (kernel 1), bf16 ("sublane"), int8 ("i8").  `from` is
+// the TPU kernel's cast of w, `get` reads element k of words loaded whole.
+template <typename W>
+struct Weight;
+template <>
+struct Weight<float> {
+  __device__ static float get(const uint32_t* r, int k) {
+    return __uint_as_float(r[k]);
+  }
+};
+template <>
+struct Weight<__nv_bfloat16> {
+  __device__ static __nv_bfloat16 from(float v) { return __float2bfloat16(v); }
+  __device__ static float value(__nv_bfloat16 w) { return __bfloat162float(w); }
+  __device__ static float get(const uint32_t* r, int k) {
+    const uint32_t x = r[k >> 1];
+    return __uint_as_float((k & 1) ? (x & 0xffff0000u) : (x << 16));
+  }
+};
+template <>
+struct Weight<int8_t> {
+  __device__ static int8_t from(float v) { return (int8_t)(int)v; }
+  // s8 weight x 0/1 match -> s32 -> f32, exact
+  __device__ static float value(int8_t w) { return (float)(int32_t)w; }
+  // The same value without a conversion instruction: byte k biased by 128
+  // under the exponent of 2^23 reads as 2^23 + 128 + w, exactly.
+  __device__ static float get(const uint32_t* r, int k) {
+    const uint32_t b = __byte_perm(r[k >> 2] ^ 0x80808080u, 0x4Bu,
+                                   0x4550u + (k & 3));
+    return __uint_as_float(b) - 8388736.0f;
+  }
+};
+
+// The n_words 32-bit words at p (16-byte aligned when n_words >= 4).
+template <int kWords>
+__device__ __forceinline__ void load_words(const void* p,
+                                           uint32_t (&r)[kWords]) {
+  if constexpr (kWords % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < kWords / 4; ++k) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[k];
+      r[4 * k] = v.x, r[4 * k + 1] = v.y, r[4 * k + 2] = v.z,
+            r[4 * k + 3] = v.w;
+    }
+  } else if constexpr (kWords == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    r[0] = v.x, r[1] = v.y;
+  } else {
+    static_assert(kWords == 1, "weight rows of 4, 8 or 16k bytes");
+    r[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+__device__ __forceinline__ uint32_t bits_of(int8_t w) { return (uint8_t)w; }
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 w) {
+  return __bfloat16_as_ushort(w);
+}
+
+// Store kWords 32-bit words at p (aligned as load_words reads them).
+template <int kWords>
+__device__ __forceinline__ void store_words(void* p,
+                                            const uint32_t (&r)[kWords]) {
+  if constexpr (kWords % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < kWords / 4; ++k)
+      reinterpret_cast<uint4*>(p)[k] =
+          make_uint4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+  } else if constexpr (kWords == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(r[0], r[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = r[0];
+  }
+}
+
+// One work item of a block: its group, the group's depth and first row in
+// the stream, and the first column of the item.
+struct Item {
+  int g, rows, row0, col0;
+};
+
+// Where a walk stands: round k of the block's items (s_items[k]) and the
+// first row of the current stage.
+struct Cursor {
+  int k, r0;
+};
+
+// One body for the three kernels.  kPlain: kernel 1 (qids = tids [B, n],
+// qw = qtf [B, n], weights m from the chunk's query table, f32); otherwise
+// kernels 2-3 (qids = uids [n], qw = w [2B, n], weights of type W).
+// kSmem: tables and weights in shared memory; otherwise g_table holds the
+// query tables of kernel 1 (chunk c at c * g_stride) or the uid table of
+// kernels 2-3, and kernels 2-3 read weights from w.  A block takes query
+// chunk blockIdx.x % n_chunks of kQGroups * QPT queries and walks every
+// item of the stream.
+template <typename W, int QPT, bool kPlain, bool kSmem>
+__global__ void __launch_bounds__(kThreads, 2) slots_kernel(
+    const __grid_constant__ CUtensorMap terms, const float* __restrict__ impact,
+    const int64_t* __restrict__ group_off,
+    const int32_t* __restrict__ group_rows,
+    const int32_t* __restrict__ group_order, int n_items, int n_chunks,
+    const int32_t* __restrict__ qids, const float* __restrict__ qw, int B,
+    int n, int bits, const int32_t* __restrict__ g_table, int64_t g_stride,
     float* __restrict__ out, int64_t ld_out) {
-  __shared__ int32_t s_tid[kSmemQ ? kQB * kMaxT : 1];
-  __shared__ float s_qtf[kSmemQ ? kQB * kMaxT : 1];
-  const int g = blockIdx.x;
-  const int col = threadIdx.x;
-  const int q0 = blockIdx.y * kQB;
-  const int nq = min(kQB, B - q0);
-  if constexpr (kSmemQ) {
-    for (int i = threadIdx.x; i < nq * T; i += blockDim.x) {
-      s_tid[i] = tids[(int64_t)q0 * T + i];
-      s_qtf[i] = qtf[(int64_t)q0 * T + i];
+  constexpr int kChunk = kQGroups * QPT;
+  constexpr int kWords = QPT * (int)sizeof(W) / 4;
+  // weight row stride: padded in shared memory, kChunk weights in device
+  // memory (kernel 1's query tables there)
+  constexpr int kRow = kSmem ? row_bytes(kChunk * (int)sizeof(W))
+                             : kChunk * (int)sizeof(W);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ Item s_items[kMaxRounds];  // the block's items, in walk order
+  __shared__ Cursor s_prod;  // the producer's walk (thread 0)
+  __shared__ int s_count;
+  const uint32_t raw = tma::smem_u32(smem_raw);
+  int32_t* ring = reinterpret_cast<int32_t*>(
+      smem_raw + (((raw + 127u) & ~127u) - raw));
+  float* ximp = reinterpret_cast<float*>(ring + kStages * kTile);
+  // bit r of s_mask[stage % kMaskBufs][c]: row r of column c matched
+  uint32_t(*s_mask)[kSliceCols] =
+      reinterpret_cast<uint32_t(*)[kSliceCols]>(ximp + kImpBufs * kTile);
+  const int fbits = filter_bits(bits);
+  uint32_t* s_filter = &s_mask[kMaskBufs][0];
+  int32_t* s_keys =
+      reinterpret_cast<int32_t*>(s_filter + (1 << (fbits - 5)));
+  int32_t* s_slots = s_keys + (1 << bits);
+  unsigned char* s_w = reinterpret_cast<unsigned char*>(s_slots + (1 << bits));
+  // kernels 2-3: bit i of s_pmask[u * kQGroups + qg]: query qg * QPT + i has
+  // weight > 0 on id u (after the weights, 16-byte rows)
+  uint32_t* s_pmask = reinterpret_cast<uint32_t*>(s_w + (size_t)n * kRow);
+
+  const int tid = threadIdx.x;
+  const int col = tid % kSliceCols, qg = tid / kSliceCols;
+  const int chunk = blockIdx.x % n_chunks;
+  const int q0 = chunk * kChunk;
+  const int nq = min(kChunk, B - q0);
+  const bool active = qg * QPT < nq;  // this group folds at least one query
+  const int G = gridDim.x / n_chunks;  // blocks a chunk
+  const int b0 = blockIdx.x / n_chunks;
+
+  // Round k's item: k * G + b0, or k * G + G - 1 - b0 in odd rounds (snake
+  // order over the items ranked by depth); the block's items are staged in
+  // s_items before the walk starts.
+  const int n_rounds = (n_items + G - 1) / G;  // the last may have no item here
+  auto round_item = [&](int k) {
+    return k * G + ((k & 1) ? G - 1 - b0 : b0);
+  };
+  auto valid = [&](const Cursor& c) {
+    return c.k < n_rounds && round_item(c.k) < n_items;
+  };
+  auto advance = [&](Cursor& c) {
+    c.r0 += kStageRows;
+    if (c.r0 >= s_items[c.k].rows) c.k += 1, c.r0 = 0;
+  };
+  auto stage_rows = [&](const Cursor& c) {
+    return max(0, min(kStageRows, s_items[c.k].rows - c.r0));
+  };
+  // Thread 0: fill ring stage `slot` with the producer's next stage.  A
+  // stage of 0 rows (an empty group) expects 0 bytes and completes on the
+  // arrival alone.
+  auto produce = [&](int slot) {
+    Cursor& c = s_prod;
+    const Item& it = s_items[c.k];
+    const int boxes = (stage_rows(c) + kBoxRows - 1) / kBoxRows;
+    const uint32_t bar = tma::smem_u32(&full[slot]);
+    tma::mbar_expect_tx(bar, boxes * kBoxRows * kSliceCols * 4);
+    for (int i = 0; i < boxes; ++i)
+      tma::tma_box(tma::smem_u32(ring + slot * kTile + i * kBoxRows * kSliceCols),
+                   &terms, it.col0, it.row0 + c.r0 + i * kBoxRows, bar);
+    advance(c);
+  };
+
+  // The block's items, and kernel 1's query chunk (in the impact tiles,
+  // unused until the first lookup), in one round trip to device memory.
+  for (int k = tid; k < n_rounds && k < kMaxRounds; k += kThreads) {
+    const int item = round_item(k);
+    if (item < n_items) {
+      const int g = group_order[item / kSlices];
+      s_items[k] = Item{g, group_rows[g], (int)(group_off[g] / kCols),
+                        (item % kSlices) * kSliceCols};
     }
-    __syncthreads();
   }
-  const int32_t* q_tid = kSmemQ ? s_tid : tids + (int64_t)q0 * T;
-  const float* q_w = kSmemQ ? s_qtf : qtf + (int64_t)q0 * T;
-
-  float acc_s[kQB], acc_c[kQB];
-#pragma unroll
-  for (int q = 0; q < kQB; ++q) {
-    acc_s[q] = 0.f;
-    acc_c[q] = 0.f;
-  }
-  const int64_t base = group_off[g] + col;
-  const int rows = group_rows[g];
-  for (int r = 0; r < rows; ++r) {
-    const int32_t t = __ldg(terms + base + (int64_t)r * kCols);
-    if (t < 0) continue;  // pad slot: matches no query, adds exactly 0
-    const float x = __ldg(impact + base + (int64_t)r * kCols);
-#pragma unroll
-    for (int q = 0; q < kQB; ++q) {
-      if (q < nq) {
-        float m = 0.f;
-        for (int j = 0; j < T; ++j)
-          m += (t == q_tid[q * T + j]) ? q_w[q * T + j] : 0.f;
-        acc_s[q] += m * x;
-        acc_c[q] += (m > 0.f) ? 1.f : 0.f;
-      }
+  int32_t* s_tids = reinterpret_cast<int32_t*>(ximp);
+  float* s_qtf = ximp + kImpBufs * kTile / 2;
+  if constexpr (kPlain && kSmem) {
+    for (int i = tid; i < nq * n; i += kThreads) {
+      s_tids[i] = qids[(int64_t)q0 * n + i];
+      s_qtf[i] = qw[(int64_t)q0 * n + i];
     }
   }
-#pragma unroll
-  for (int q = 0; q < kQB; ++q)
-    if (q < nq)
-      out[(int64_t)(q0 + q) * ld_out + (int64_t)g * kCols + col] =
-          keyed(acc_s[q], acc_c[q]);
-}
+  __syncthreads();
 
-template <typename W>
-__device__ __forceinline__ W to_weight(float v);
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_weight<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <>
-__device__ __forceinline__ int8_t to_weight<int8_t>(float v) {
-  return (int8_t)(int)v;
-}
-__device__ __forceinline__ float weight_value(__nv_bfloat16 w) {
-  return __bfloat162float(w);
-}
-__device__ __forceinline__ float weight_value(int8_t w) {
-  return (float)(int32_t)w;  // s8 weight x 0/1 match -> s32 -> f32, exact
-}
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) tma::mbar_init(tma::smem_u32(&full[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    s_prod = Cursor{0, 0};
+    for (int i = 0; i < kLead && valid(s_prod); ++i) produce(i);
+  }
 
-// kSmem: U <= kMaxU, so the uid table and the block's weights live in
-// shared memory; otherwise the table is the one build_global made
-// (g_table, 2^g_bits slots) and weights are read from w as needed.
-template <typename W, bool kSmem>
-__global__ void __launch_bounds__(kCols) slots_udedup_kernel(
-    const int32_t* __restrict__ terms, const float* __restrict__ impact,
-    const int64_t* __restrict__ group_off, const int32_t* __restrict__ group_rows,
-    const int32_t* __restrict__ uids, int U, const float* __restrict__ w, int B,
-    float* __restrict__ out, int64_t ld_out, const int32_t* __restrict__ g_table,
-    int g_bits) {
-  __shared__ int32_t s_key[kSmem ? uid_table::kSmemSize : 1];
-  __shared__ int32_t s_slot[kSmem ? uid_table::kSmemSize : 1];
-  __shared__ W s_w[kSmem ? kQB * kMaxU : 1];
-  const int g = blockIdx.x;
-  const int col = threadIdx.x;
-  const int q0 = blockIdx.y * kQB;
-  const int nq = min(kQB, B - q0);
-
-  // weight rows [0, B) of w; the presence rows [B, 2B) are not read: the
-  // presence of a query is derived as (weight > 0)
+  // The block's tables, while the first stages stream in.
+  const int32_t* keys;
+  const int32_t* slots;
+  const unsigned char* wrows;  // weight row u at wrows + u * kRow
   if constexpr (kSmem) {
-    for (int i = threadIdx.x; i < kQB * U; i += blockDim.x) {
-      const int q = i / U;
-      const float v = q < nq ? w[(int64_t)(q0 + q) * U + (i - q * U)] : 0.f;
-      s_w[i] = to_weight<W>(v);
+    if constexpr (kPlain) {
+      uid_table::build_query_table(s_tids, s_qtf, nq, n, bits, s_keys,
+                                   s_slots, reinterpret_cast<float*>(s_w),
+                                   kRow / 4, &s_count);  // ends with a barrier
+    } else {
+      // w[:B] transposed into [U][kChunk], cast as the TPU kernel casts it,
+      // and the presence masks; the presence rows [B, 2B) are not read:
+      // presence is weight > 0.  A thread converts the QPT weights of one
+      // (id, query group), reading along the ids (coalesced), and writes
+      // them as one vector and the group's mask as one word.
+      for (int i = tid; i < n * kQGroups; i += kThreads) {
+        const int u = i % n, g = i / n;
+        uint32_t r[kWords], pm = 0;
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) r[k] = 0u;
+#pragma unroll
+        for (int k = 0; k < QPT; ++k) {
+          const int q = g * QPT + k;
+          const float v = q < nq ? qw[(int64_t)(q0 + q) * n + u] : 0.f;
+          const W wq = Weight<W>::from(v);
+          pm |= (Weight<W>::value(wq) > 0.f ? 1u : 0u) << k;
+          r[k * (int)sizeof(W) / 4] |= (uint32_t)bits_of(wq)
+                                       << (8 * ((k * (int)sizeof(W)) & 3));
+        }
+        store_words<kWords>(s_w + (size_t)u * kRow + g * QPT * sizeof(W), r);
+        s_pmask[i % n * kQGroups + g] = pm;
+      }
+      uid_table::build_shared(s_keys, s_slots, qids, n, bits);  // barriers
     }
-    uid_table::build_shared(s_key, s_slot, uids, U);
+    keys = s_keys, slots = s_slots, wrows = s_w;
+  } else {
+    const int32_t* t = kPlain ? g_table + chunk * g_stride : g_table;
+    keys = t, slots = t + (1 << bits);
+    wrows = reinterpret_cast<const unsigned char*>(slots + (1 << bits));
   }
-  const int bits = kSmem ? uid_table::kSmemBits : g_bits;
-  const int32_t* keys = kSmem ? s_key : g_table;
-  const int32_t* slots = kSmem ? s_slot : g_table + ((size_t)1 << g_bits);
+  // The filter: one bit for each id of the table, set by its own hash.  Most
+  // postings match no query term; their lookup ends at a clear bit, with one
+  // shared-memory load, before any probe of the table.
+  for (int i = tid; i < (1 << (fbits - 5)); i += kThreads) s_filter[i] = 0u;
+  for (int i = tid; i < kMaskBufs * kSliceCols; i += kThreads)
+    (&s_mask[0][0])[i] = 0u;
+  __syncthreads();
+  for (int i = tid; i < (1 << bits); i += kThreads) {
+    const int32_t k = keys[i];
+    if (k != uid_table::kEmpty) {
+      const uint32_t b = filter_bit(k, fbits);
+      atomicOr(s_filter + (b >> 5), 1u << (b & 31));
+    }
+  }
+  __syncthreads();
 
-  float acc_s[kQB], acc_c[kQB];
+  // The weights of this thread's QPT queries for distinct id u, and the
+  // queries among them whose weight is > 0 (bit i: query qg * QPT + i).
+  auto weights = [&](int u, float (&wv)[QPT]) {
+    uint32_t pm = 0;
+    if constexpr (kSmem || kPlain) {
+      uint32_t r[kWords];
+      load_words<kWords>(wrows + (size_t)u * kRow + qg * QPT * sizeof(W), r);
 #pragma unroll
-  for (int q = 0; q < kQB; ++q) {
-    acc_s[q] = 0.f;
-    acc_c[q] = 0.f;
-  }
-  const int64_t base = group_off[g] + col;
-  const int rows = group_rows[g];
-  for (int r = 0; r < rows; ++r) {
-    const int32_t t = __ldg(terms + base + (int64_t)r * kCols);
-    if (t < 0) continue;
-    const int u = uid_table::lookup(keys, slots, bits, t);
-    if (u < 0) continue;  // no batch term: every query's weight is 0
-    const float x = __ldg(impact + base + (int64_t)r * kCols);
+      for (int i = 0; i < QPT; ++i) wv[i] = Weight<W>::get(r, i);
+    } else {
 #pragma unroll
-    for (int q = 0; q < kQB; ++q) {
-      if (q < nq) {
-        float mw;
-        if constexpr (kSmem)
-          mw = weight_value(s_w[q * U + u]);
-        else
-          mw = weight_value(to_weight<W>(w[(int64_t)(q0 + q) * U + u]));
-        acc_s[q] += mw * x;
-        acc_c[q] += (mw > 0.f) ? 1.f : 0.f;
+      for (int i = 0; i < QPT; ++i) {
+        const int q = q0 + qg * QPT + i;
+        wv[i] = q < B ? Weight<W>::value(Weight<W>::from(
+                            __ldg(qw + (int64_t)q * n + u)))
+                      : 0.f;
       }
     }
-  }
+    if constexpr (kSmem && !kPlain) {
+      pm = s_pmask[u * kQGroups + qg];
+    } else {
 #pragma unroll
-  for (int q = 0; q < kQB; ++q)
-    if (q < nq)
-      out[(int64_t)(q0 + q) * ld_out + (int64_t)g * kCols + col] =
-          keyed(acc_s[q], acc_c[q]);
+      for (int i = 0; i < QPT; ++i) pm |= (wv[i] > 0.f ? 1u : 0u) << i;
+    }
+    return pm;
+  };
+
+  float acc[QPT];
+  uint32_t present = 0;  // bit i: query qg * QPT + i matched with m > 0
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) acc[i] = 0.f;
+
+  Cursor look{0, 0}, fold{0, 0};  // the stage being looked up / folded
+  const int lrow = tid / 32, lcol = (tid % 32) * 4;  // lookup: 4 columns
+  for (int j = 0;; ++j) {
+    if (valid(look)) {  // stage j: matched ids -> positions u, impacts copied
+      tma::mbar_wait(tma::smem_u32(&full[j % kStages]), (j / kStages) & 1);
+      if (lrow < stage_rows(look)) {
+        // Warp w looks up row w of the stage, 4 columns a thread in one
+        // 16-byte load.  Only a set filter bit probes the table; a match
+        // writes u over its term id, sets its row bit in the column's mask
+        // and starts the copy of its impact.
+        int32_t* t = ring + (j % kStages) * kTile + lrow * kSliceCols + lcol;
+        const int4 v = *reinterpret_cast<const int4*>(t);
+        const int32_t term[4] = {v.x, v.y, v.z, v.w};
+        uint32_t fb[4], fw[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fb[i] = filter_bit(term[i], fbits);
+          fw[i] = term[i] >= 0 ? s_filter[fb[i] >> 5] : 0u;
+        }
+        uint32_t pass = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pass |= ((fw[i] >> (fb[i] & 31)) & 1u) << i;
+        if (pass) {
+          const Item& it = s_items[look.k];
+          const float* src = impact +
+                             ((int64_t)it.row0 + look.r0 + lrow) * kCols +
+                             it.col0 + lcol;
+          float* xs = ximp + (j % kImpBufs) * kTile + lrow * kSliceCols + lcol;
+          uint32_t* mask = &s_mask[j % kMaskBufs][lcol];
+          do {
+            const int i = __ffs(pass) - 1;
+            pass &= pass - 1;
+            const int32_t tm = i == 0 ? term[0] : i == 1 ? term[1]
+                             : i == 2 ? term[2] : term[3];
+            const int u = uid_table::lookup(keys, slots, bits, tm);
+            if (u >= 0) {
+              t[i] = u;
+              atomicOr(mask + i, 1u << lrow);
+              cp_async4(xs + i, src + i);
+            }
+          } while (pass);
+          // the slot is refilled by TMA (the async proxy) after these writes
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        }
+      }
+      advance(look);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kLag) : "memory");
+    // Stage j's positions and stage j - kLag's impacts are visible; every
+    // thread is done with stage j - kLag - 1, whose ring slot is refilled
+    // now (and whose impact tile stage j + 1 takes).
+    __syncthreads();
+    if (tid == 0 && valid(s_prod)) produce((j + kLead) % kStages);
+    // Clear the row masks of stage j + 2: stage j + 2 - kMaskBufs, their
+    // last user, was folded before this iteration's barrier, and stage
+    // j + 2 is looked up after the next one (kMaskBufs = kLag + 3).
+    if (tid < kSliceCols) s_mask[(j + 2) % kMaskBufs][tid] = 0u;
+    if (j < kLag) continue;
+
+    // Fold stage f = j - kLag in row order, visiting only the rows of this
+    // thread's column that matched.
+    const int f = j - kLag;
+    const int32_t* t = ring + (f % kStages) * kTile + col;
+    const float* xs = ximp + (f % kImpBufs) * kTile + col;
+    if (active) {
+      uint32_t rows = s_mask[f % kMaskBufs][col];
+      while (rows) {
+        const int r = __ffs(rows) - 1;
+        rows &= rows - 1;
+        const float x = xs[r * kSliceCols];
+        float wv[QPT];
+        present |= weights(t[r * kSliceCols], wv);
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) acc[i] += wv[i] * x;
+      }
+    }
+    if (fold.r0 + kStageRows >= s_items[fold.k].rows) {  // item complete
+      if (active) {
+        const Item& it = s_items[fold.k];
+        float* o = out + (int64_t)it.g * kCols + it.col0 + col;
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) {
+          const int q = q0 + qg * QPT + i;
+          if (q < B) o[(int64_t)q * ld_out] = keyed(acc[i], (present >> i) & 1u);
+          acc[i] = 0.f;
+        }
+      }
+      present = 0;
+    }
+    advance(fold);
+    if (!valid(fold)) break;
+  }
+}
+
+// Everything a launch passes but the tensor map and the tables.
+struct Args {
+  const float* impact;
+  const int64_t* group_off;
+  const int32_t* group_rows;
+  const int32_t* group_order;
+  int n_groups;
+  const int32_t* qids;
+  const float* qw;
+  int B, n;
+  float* out;
+  int64_t ld_out;
+};
+
+// The stream's term ids as a 2-d tensor [n_slots / 512 rows, 512] of int32,
+// read in boxes of 8 rows x 128 columns; rows past the end read 0.
+int encode_stream(CUtensorMap* map, const void* terms, int64_t n_slots) {
+  if (n_slots < kCols || n_slots % kCols || n_slots / kCols > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const tma::EncodeTiled encode = tma::encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t gdim[2] = {(cuuint64_t)kCols, (cuuint64_t)(n_slots / kCols)};
+  const cuuint64_t gstride[1] = {(cuuint64_t)kCols * 4};
+  const cuuint32_t box[2] = {kSliceCols, kBoxRows};
+  const cuuint32_t estride[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(terms),
+             gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// Launch one instantiation: as many persistent blocks as fit on the card
+// at once (occupancy at launch), G for each query chunk, G at most the
+// number of items.
+template <typename W, int QPT, bool kPlain, bool kSmem>
+int run(const CUtensorMap& map, const Args& a, int bits,
+        const int32_t* g_table, int64_t g_stride, size_t smem,
+        cudaStream_t s) {
+  auto kern = slots_kernel<W, QPT, kPlain, kSmem>;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int chunk = kQGroups * QPT;
+  const int n_chunks = (a.B + chunk - 1) / chunk;
+  const int n_items = a.n_groups * kSlices;
+  int64_t fit = ((int64_t)per_sm * n_sm + n_chunks - 1) / n_chunks;
+  // at most kMaxRounds items a block (more blocks than fit at once past that)
+  if (fit < (n_items + kMaxRounds - 1) / kMaxRounds)
+    fit = (n_items + kMaxRounds - 1) / kMaxRounds;
+  const int G = fit < n_items ? (int)fit : n_items;
+  if ((int64_t)G * n_chunks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  kern<<<G * n_chunks, kThreads, smem, s>>>(
+      map, a.impact, a.group_off, a.group_rows, a.group_order, n_items,
+      n_chunks, a.qids, a.qw, a.B, a.n, bits, g_table, g_stride, a.out,
+      a.ld_out);
+  return (int)cudaGetLastError();
 }
 
 template <typename W>
-int launch_udedup(const void* terms, const void* impact, const void* group_off,
-                  const void* group_rows, int n_groups, const void* uids, int U,
-                  const void* w, int B, void* out, int64_t ld_out, void* table,
-                  int64_t table_len, void* stream) {
-  if (U < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(n_groups, (B + kQB - 1) / kQB);
+int launch_udedup(const void* terms, const Args& a, int64_t n_slots,
+                  void* table, int64_t table_len, cudaStream_t s) {
+  const int U = a.n;
+  if (a.B < 1 || U < 1 || a.n_groups < 1 || (int64_t)a.n_groups > INT_MAX / kSlices)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  int rc = encode_stream(&map, terms, n_slots);
+  if (rc != 0) return rc;
+  bool wide = a.B > 16;  // 64 queries a block, else 16
   if (U <= kMaxU) {
-    slots_udedup_kernel<W, true><<<grid, kCols, 0, s>>>(
-        (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
-        (const int32_t*)group_rows, (const int32_t*)uids, U, (const float*)w, B,
-        (float*)out, ld_out, nullptr, 0);
-    return (int)cudaGetLastError();
+    const int bits = uid_table::table_bits(U);
+    // ring and impact tiles, the uid table, the weights [U][chunk] and the
+    // presence masks [U][kQGroups]
+    auto smem = [&](int chunk) {
+      return stream_smem(bits) + ((size_t)8 << bits) +
+             (size_t)U * row_bytes(chunk * (int)sizeof(W)) +
+             (size_t)U * kQGroups * 4;
+    };
+    int dev = 0, max_smem = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    // 64 bf16 weights a row of 1,024 ids do not fit: 16-query chunks
+    if (wide && smem(64) + 256 > (size_t)max_smem) wide = false;
+    return wide ? run<W, 16, false, true>(map, a, bits, nullptr, 0, smem(64), s)
+                : run<W, 4, false, true>(map, a, bits, nullptr, 0, smem(16), s);
   }
   const int bits = uid_table::global_bits(U);
   if (table == nullptr || table_len < (int64_t)2 << bits)
     return (int)cudaErrorInvalidValue;
-  const int rc = uid_table::build_global((const int32_t*)uids, U,
-                                         (int32_t*)table, bits, s);
+  rc = uid_table::build_global(a.qids, U, (int32_t*)table, bits, s);
   if (rc != 0) return rc;
-  slots_udedup_kernel<W, false><<<grid, kCols, 0, s>>>(
-      (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
-      (const int32_t*)group_rows, (const int32_t*)uids, U, (const float*)w, B,
-      (float*)out, ld_out, (const int32_t*)table, bits);
-  return (int)cudaGetLastError();
+  const int32_t* t = (const int32_t*)table;
+  return wide ? run<W, 16, false, false>(map, a, bits, t, 0, stream_smem(bits), s)
+              : run<W, 4, false, false>(map, a, bits, t, 0, stream_smem(bits), s);
+}
+
+Args make_args(const void* impact, const void* group_off,
+               const void* group_rows, const void* group_order, int n_groups,
+               const void* qids, const void* qw, int B, int n, void* out,
+               int64_t ld_out) {
+  return Args{(const float*)impact,    (const int64_t*)group_off,
+              (const int32_t*)group_rows, (const int32_t*)group_order,
+              n_groups,                (const int32_t*)qids,
+              (const float*)qw,        B,
+              n,                       (float*)out,
+              ld_out};
 }
 
 }  // namespace
 
+// Kernel 1.  tables: device-memory scratch of
+// ceil(B / 16) * query_table_words(bits, min(B, 16) * T, 16) int32, needed
+// only when T > kMaxT (bm25_slots.slots_table_words).
 extern "C" int mse_bm25_slots(const void* terms, const void* impact,
                               const void* group_off, const void* group_rows,
                               int n_groups, const void* tids, const void* qtf,
                               int B, int T, void* out, int64_t ld_out,
-                              void* stream) {
-  if (T < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(n_groups, (B + kQB - 1) / kQB);
+                              const void* group_order, int64_t n_slots,
+                              void* tables, int64_t tables_len, void* stream) {
+  if (B < 1 || T < 1 || n_groups < 1 || n_groups > INT_MAX / kSlices)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (T <= kMaxT)
-    slots_kernel<true><<<grid, kCols, 0, s>>>(
-        (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
-        (const int32_t*)group_rows, (const int32_t*)tids, (const float*)qtf, B,
-        T, (float*)out, ld_out);
-  else
-    slots_kernel<false><<<grid, kCols, 0, s>>>(
-        (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
-        (const int32_t*)group_rows, (const int32_t*)tids, (const float*)qtf, B,
-        T, (float*)out, ld_out);
-  return (int)cudaGetLastError();
+  CUtensorMap map;
+  int rc = encode_stream(&map, terms, n_slots);
+  if (rc != 0) return rc;
+  const Args a = make_args(impact, group_off, group_rows, group_order,
+                           n_groups, tids, qtf, B, T, out, ld_out);
+  constexpr int chunk = kQGroups * kPlainQPT;
+  const int n_ids = (B < chunk ? B : chunk) * T;  // a chunk's term slots
+  const int bits = uid_table::table_bits(n_ids);
+  const int64_t words = uid_table::query_table_words(bits, n_ids, chunk);
+  if (T <= kMaxT)  // the table with weight rows padded (row_bytes)
+    return run<float, kPlainQPT, true, true>(
+        map, a, bits, nullptr, 0,
+        stream_smem(bits) +
+            uid_table::query_table_words(bits, n_ids, row_bytes(chunk * 4) / 4) * 4,
+        s);
+  const int n_chunks = (B + chunk - 1) / chunk;
+  if (tables == nullptr || tables_len < words * n_chunks)
+    return (int)cudaErrorInvalidValue;
+  uid_table::build_query_tables_kernel<<<n_chunks, 256, 0, s>>>(
+      (const int32_t*)tids, (const float*)qtf, B, T, chunk, bits,
+      (int32_t*)tables, words);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return run<float, kPlainQPT, true, false>(map, a, bits,
+                                            (const int32_t*)tables, words,
+                                            stream_smem(bits), s);
 }
 
+// Kernels 2 and 3.  table: the device-memory uid table (2 << global_bits(U)
+// int32), needed only when U > kMaxU (bm25_slots.uid_table_scratch).
 extern "C" int mse_bm25_slots_udedup_bf16(
     const void* terms, const void* impact, const void* group_off,
     const void* group_rows, int n_groups, const void* uids, int U,
-    const void* w, int B, void* out, int64_t ld_out, void* table,
-    int64_t table_len, void* stream) {
-  return launch_udedup<__nv_bfloat16>(terms, impact, group_off, group_rows,
-                                      n_groups, uids, U, w, B, out, ld_out,
-                                      table, table_len, stream);
+    const void* w, int B, void* out, int64_t ld_out, const void* group_order,
+    int64_t n_slots, void* table, int64_t table_len, void* stream) {
+  return launch_udedup<__nv_bfloat16>(
+      terms,
+      make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
+                B, U, out, ld_out),
+      n_slots, table, table_len, (cudaStream_t)stream);
 }
 
 extern "C" int mse_bm25_slots_udedup_i8(
     const void* terms, const void* impact, const void* group_off,
     const void* group_rows, int n_groups, const void* uids, int U,
-    const void* w, int B, void* out, int64_t ld_out, void* table,
-    int64_t table_len, void* stream) {
-  return launch_udedup<int8_t>(terms, impact, group_off, group_rows, n_groups,
-                               uids, U, w, B, out, ld_out, table, table_len,
-                               stream);
+    const void* w, int B, void* out, int64_t ld_out, const void* group_order,
+    int64_t n_slots, void* table, int64_t table_len, void* stream) {
+  return launch_udedup<int8_t>(
+      terms,
+      make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
+                B, U, out, ld_out),
+      n_slots, table, table_len, (cudaStream_t)stream);
 }
 
 extern "C" const char* mse_cuda_error_string(int code) {

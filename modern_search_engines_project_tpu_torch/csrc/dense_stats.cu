@@ -40,7 +40,8 @@
 //     memory, filled by the Tensor Memory Accelerator: one thread issues
 //     2-d box copies of a tensor map over the bank viewed [n * cnt, dim]
 //     (cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so
-//     nothing links libcuda), each stage completing on its own mbarrier.
+//     nothing links libcuda; tma.cuh), each stage completing on its own
+//     mbarrier.
 //     One barrier a stage frees the oldest stage for the next copy.
 //   * No bank conflicts.  The boxes arrive with TMA's 128-byte swizzle (16 B
 //     chunk c of row r at c ^ (r & 7)), which ldmatrix reads conflict-free;
@@ -73,53 +74,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
+
+using tma::encode_tiled;
+using tma::EncodeTiled;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
+using tma::tma_box;
 
 constexpr int kBoxK = 64;          // dims of one TMA box: 128 bytes a row
 constexpr int kMaxStages = 16;     // ring depth for the smallest stages
 constexpr int kQPad = 8;           // bf16 pad of a query row
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Arrive on the barrier and expect `bytes` more from the copies of its phase.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA copy of the box at (x = dim, y = row) of the bank's 2-d tensor map
-// into shared memory, 128-byte swizzled; completion is counted on `bar`.
-// Rows and dims past the tensor's end arrive as zeros.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(map), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
@@ -371,28 +340,6 @@ __global__ void __launch_bounds__(128 * QW) stats_kernel(
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found at run time so that nothing
-// links libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 template <int NT, int QW, int DW, bool kQSmem>

@@ -15,6 +15,11 @@
 //     match at the bench shape, and a miss ends at the first empty slot.
 // Keys are the uids, values their positions u; pads (uid < 0) are never
 // inserted, and postings with term < 0 are never looked up.
+//
+// The per-query kernels (slot kernel 1, blocked kernel 7) look postings up
+// the same way, in a table of one query chunk's distinct term ids with a
+// weight row m[u][q] beside each (build_query_table): both sum a weight in
+// term-slot order there, which keeps their scores the same bits.
 
 #pragma once
 
@@ -63,17 +68,17 @@ __device__ __forceinline__ int lookup(const int32_t* keys, const int32_t* slots,
   }
 }
 
-// Block-cooperative build of a kSmemSize table in shared memory (U <=
-// kSmemMaxU).  Every thread of the block must call it; it ends with a
-// barrier.
+// Block-cooperative build of a 2^bits-slot table in shared memory (2^bits
+// >= 2U; kSmemBits for U up to kSmemMaxU).  Every thread of the block must
+// call it; it ends with a barrier.
 __device__ __forceinline__ void build_shared(int32_t* keys, int32_t* slots,
                                              const int32_t* __restrict__ uids,
-                                             int U) {
-  for (int i = threadIdx.x; i < kSmemSize; i += blockDim.x) keys[i] = kEmpty;
+                                             int U, int bits = kSmemBits) {
+  for (int i = threadIdx.x; i < (1 << bits); i += blockDim.x) keys[i] = kEmpty;
   __syncthreads();
   for (int u = threadIdx.x; u < U; u += blockDim.x) {
     const int32_t key = uids[u];
-    if (key >= 0) insert(keys, slots, kSmemBits, key, u);
+    if (key >= 0) insert(keys, slots, bits, key, u);
   }
   __syncthreads();
 }
@@ -85,6 +90,13 @@ __global__ void build_global_kernel(const int32_t* __restrict__ uids, int U,
     const int32_t key = uids[u];
     if (key >= 0) insert(keys, slots, bits, key, u);
   }
+}
+
+// Bits of a table for n ids: 2^bits >= 2n (at least 2 slots).
+__host__ __device__ inline int table_bits(int n) {
+  int bits = 1;
+  while ((1 << bits) < 2 * n) ++bits;
+  return bits;
 }
 
 // Table bits for U distinct ids in device memory: 2^bits >= 2U.
@@ -104,6 +116,73 @@ inline int build_global(const int32_t* uids, int U, int32_t* table, int bits,
   build_global_kernel<<<(U + 255) / 256, 256, 0, stream>>>(uids, U, table,
                                                            table + n, bits);
   return (int)cudaGetLastError();
+}
+
+// ---- one query chunk's table (kernels 1 and 7) ----------------------------
+// The distinct term ids of nq queries of T term slots each: an
+// open-addressing table of 2^bits keys (2^bits >= 2 nq T) and 2^bits dense
+// ids u, and m[u * ldm + q], the weight sum_t qtf[q, t] * (tids[q, t] ==
+// id_u) of query q, summed in t order as the TPU kernel's per-query match
+// does (q < nq <= ldm; columns q >= nq stay 0).  A repeated id is one
+// entry; query pads (< 0) are skipped.
+
+// int32 words of one chunk's table: keys, dense ids, then m [n_ids][ldm].
+__host__ __device__ inline int64_t query_table_words(int bits, int n_ids,
+                                                     int ldm) {
+  return 2 * ((int64_t)1 << bits) + (int64_t)n_ids * ldm;
+}
+
+// Block-cooperative build (keys, slots and m in shared or device memory,
+// `count` in shared memory).  Every thread of the block calls it; it ends
+// with a barrier.
+__device__ __forceinline__ void build_query_table(
+    const int32_t* __restrict__ tids, const float* __restrict__ qtf, int nq,
+    int T, int bits, int32_t* keys, int32_t* slots, float* m, int ldm,
+    int* count) {
+  const int size = 1 << bits;
+  for (int i = threadIdx.x; i < size; i += blockDim.x) keys[i] = kEmpty;
+  if (threadIdx.x == 0) *count = 0;
+  __syncthreads();
+  const uint32_t mask = (uint32_t)size - 1u;
+  for (int i = threadIdx.x; i < nq * T; i += blockDim.x) {
+    const int32_t key = tids[i];
+    if (key < 0) continue;  // query pads never match
+    uint32_t h = hash_slot(key, bits);
+    while (true) {
+      const int32_t prev = atomicCAS(keys + h, kEmpty, key);
+      if (prev == kEmpty) {
+        slots[h] = atomicAdd(count, 1);
+        break;
+      }
+      if (prev == key) break;  // a repeated id: one entry
+      h = (h + 1u) & mask;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < *count * ldm; i += blockDim.x) m[i] = 0.f;
+  __syncthreads();
+  for (int q = threadIdx.x; q < nq; q += blockDim.x)
+    for (int j = 0; j < T; ++j) {
+      const int32_t key = tids[q * T + j];
+      if (key >= 0) m[lookup(keys, slots, bits, key) * ldm + q] += qtf[q * T + j];
+    }
+  __syncthreads();
+}
+
+// Device-memory tables, one block per chunk of ldm queries: chunk c's table
+// starts at tables + c * stride, sized for n_ids = min(B, ldm) * T ids.
+__global__ void build_query_tables_kernel(const int32_t* __restrict__ tids,
+                                          const float* __restrict__ qtf,
+                                          int B, int T, int ldm, int bits,
+                                          int32_t* tables, int64_t stride) {
+  __shared__ int count;
+  const int q0 = blockIdx.x * ldm;
+  int32_t* keys = tables + blockIdx.x * stride;
+  int32_t* slots = keys + (1 << bits);
+  build_query_table(tids + (int64_t)q0 * T, qtf + (int64_t)q0 * T,
+                    min(ldm, B - q0), T, bits, keys, slots,
+                    reinterpret_cast<float*>(slots + (1 << bits)), ldm,
+                    &count);
 }
 
 }  // namespace uid_table

@@ -1,6 +1,6 @@
-"""Device times of kernels 4 (dense stats) and 7 (blocked BM25) at the main
-path's shapes, on the 100k-doc synthetic index that ``chip_smoke.py``
-builds, printed as one JSON line.
+"""Device times of kernels 1-3 (slot BM25), 4 (dense stats) and 7 (blocked
+BM25) at the main path's shapes, on the 100k-doc synthetic index that
+``chip_smoke.py`` builds, printed as one JSON line.
 
     python3 -m modern_search_engines_project_tpu_torch.kernel_times [--seed 0]
 
@@ -13,8 +13,14 @@ another checkout of the port on the same card:
 Kernel 4 is timed over all buckets of the slot index, and bucket by bucket
 ([n, cnt] of each in "buckets"), at B = 1, 16 and 64 unit-norm queries;
 kernel 7 on the blocked index at B = 1, 16 and 64
-df-drawn queries of T = 8 term slots (``synthetic.sample_terms``).  Inputs
-come from ``--seed``.  Needs a CUDA device.
+df-drawn queries of T = 8 term slots (``synthetic.sample_terms``).  Kernel
+1 on the slot index at B = 1, 16 and 64 df-drawn queries of T = 8, kernels
+2 and 3 at B = 16 / U = 128 and B = 64 / U = 256 (df-drawn, redrawn until
+the batch pads to that U) and B = 64 / U = 1024 (16 uniform terms a
+query); each slot kernel both back to back ("warm": the 33.8 MB of term
+ids stay in the 50 MB L2) and after a write of 128 MB that evicts L2
+("cold": the time of write and kernel less the write's).  Inputs come
+from ``--seed``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,6 +66,13 @@ def device_ms(fn, reps, warmup=2):
     raise RuntimeError("device_ms: the sleep never outlasted the enqueue")
 
 
+def cold_ms(fn, reps, flush):
+    """Device time of one ``fn()`` that finds L2 cold: ``flush(); fn()``
+    less ``flush()`` alone, each timed by ``device_ms``."""
+    both = device_ms(lambda: (flush(), fn()), reps)
+    return both - device_ms(flush, reps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -73,6 +86,11 @@ def main(argv=None) -> int:
     from modern_search_engines_project_tpu_torch.models import HashingEncoder
     from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
         bm25_score_blocked,
+    )
+    from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
+        dedup_query_terms,
+        slots_keyed,
+        slots_udedup_keyed,
     )
     from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
         bucket_stats,
@@ -93,7 +111,8 @@ def main(argv=None) -> int:
     art, _, dfs = make_artifacts(args.seed)
     cfg = Config()
     enc = HashingEncoder(dim=cfg.embedding_dim)
-    banks = SearchEngine(art, enc, cfg).didx.bucket_emb
+    slot_idx = SearchEngine(art, enc, cfg).didx
+    banks = slot_idx.bucket_emb
     blk = SearchEngine(art, enc, cfg.replace(bm25_layout="blocked")).didx.blocked
     dev = banks[0].device
     rng = np.random.default_rng(args.seed)
@@ -115,6 +134,35 @@ def main(argv=None) -> int:
         q = torch.as_tensor(qtf, device=dev)
         out["bm25_blocked"][f"B={B}"] = device_ms(
             lambda: bm25_score_blocked(blk, t, q), args.reps)
+    # kernels 1-3 on the slot index
+    st = slot_idx.slot_stream
+    views = (slot_idx.slot_terms, slot_idx.slot_impact)
+    scratch = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+
+    def timed(fn):
+        return {"warm": device_ms(fn, args.reps),
+                "cold": cold_ms(fn, args.reps, flush)}
+
+    for B in (1, 16, 64):
+        tids, qtf = sample_terms(rng, dfs, B, 8)
+        t = torch.as_tensor(tids, device=dev)
+        q = torch.as_tensor(qtf, device=dev)
+        out.setdefault("bm25_slots", {})[f"B={B} T=8"] = timed(
+            lambda: slots_keyed(st, *views, t, q))
+    for B, U, T, by_df in ((16, 128, 8, True), (64, 256, 8, True),
+                           (64, 1024, 17, False)):
+        while True:
+            tids, qtf = sample_terms(rng, dfs, B, T, by_df)
+            uids, w = dedup_query_terms(tids, qtf)
+            if uids.size == U:
+                break
+        u = torch.as_tensor(uids, device=dev)
+        wt = torch.as_tensor(w, device=dev)
+        for variant in ("sublane", "i8"):
+            out.setdefault(f"bm25_slots_udedup_{variant}", {})[
+                f"B={B} U={U}"] = timed(
+                lambda v=variant: slots_udedup_keyed(st, *views, u, wt, v))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -45,6 +45,9 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
 
 SMEM_MAX_U = 1024  # distinct ids the U-dedup kernels keep in shared memory
 # (csrc/uid_table.cuh kSmemMaxU); above it they need a device-memory table
+SMEM_MAX_T = 64  # term slots a query kernel 1 keeps in shared memory
+# (csrc/bm25_slots.cu kMaxT); above it, device-memory query tables
+PLAIN_CHUNK = 16  # queries a block of kernel 1 (csrc/bm25_slots.cu)
 
 SLOTS_KERNEL = cuda_lib.register(
     cuda_lib.CudaKernel(
@@ -277,6 +280,20 @@ def uid_table_scratch(U: int, device):
     return torch.empty(2 << bits, dtype=torch.int32, device=device)
 
 
+def slots_table_words(B: int, T: int) -> int:
+    """int32 words of device-memory scratch kernel 1 needs for B queries of
+    T term slots: 0 up to SMEM_MAX_T (its tables live in shared memory),
+    else one query table per 16-query chunk (2^bits keys, 2^bits ids with
+    2^bits >= 2 x term slots, and a [term slots, 16] f32 weight table;
+    csrc/uid_table.cuh ``query_table_words``), as ``mse_bm25_slots``
+    checks."""
+    if T <= SMEM_MAX_T:
+        return 0
+    n_ids = min(B, PLAIN_CHUNK) * T
+    bits = max(1, (2 * n_ids - 1).bit_length())
+    return -(-B // PLAIN_CHUNK) * (2 * (1 << bits) + n_ids * PLAIN_CHUNK)
+
+
 def table_args(table):
     """(pointer, length) launcher arguments for ``uid_table_scratch``."""
     return (0, 0) if table is None else (table.data_ptr(), table.numel())
@@ -296,6 +313,13 @@ def _check_stream(stream: SlotStream, dev) -> None:
     cuda_lib.check(stream.impact, "slot impact", torch.float32, dev, 1)
     cuda_lib.check(stream.group_off, "group_off", torch.int64, dev, 1)
     cuda_lib.check(stream.group_rows, "group_rows", torch.int32, dev, 1)
+    cuda_lib.check(stream.group_order, "group_order", torch.int32, dev, 1)
+
+
+def _stream_args(stream: SlotStream):
+    """(group_order pointer, slot count) launcher arguments of kernels 1-3,
+    which stream the term ids in the deepest-first group order."""
+    return stream.group_order.data_ptr(), stream.terms.numel()
 
 
 def slots_keyed(stream: SlotStream, slot_terms, slot_impact, tids, qtf):
@@ -313,12 +337,16 @@ def slots_keyed(stream: SlotStream, slot_terms, slot_impact, tids, qtf):
         raise ValueError(f"tids/qtf {tuple(tids.shape)}/{tuple(qtf.shape)}")
     out = torch.empty(B, stream.n_cols, dtype=torch.float32, device=dev)
     if B and stream.n_groups:
+        words = slots_table_words(B, T)
+        tables = (torch.empty(words, dtype=torch.int32, device=dev)
+                  if words else None)
         SLOTS_KERNEL.launch(
             dev,
             stream.terms.data_ptr(), stream.impact.data_ptr(),
             stream.group_off.data_ptr(), stream.group_rows.data_ptr(),
             stream.n_groups, tids.data_ptr(), qtf.data_ptr(), B, T,
-            out.data_ptr(), stream.n_cols,
+            out.data_ptr(), stream.n_cols, *_stream_args(stream),
+            *table_args(tables),
         )
     return out
 
@@ -350,12 +378,14 @@ def slots_udedup_keyed(
             stream.terms.data_ptr(), stream.impact.data_ptr(),
             stream.group_off.data_ptr(), stream.group_rows.data_ptr(),
             stream.n_groups, uids.data_ptr(), U, w.data_ptr(), B,
-            out.data_ptr(), stream.n_cols, *table_args(table),
+            out.data_ptr(), stream.n_cols,
         ]
-        if variant in _MMA_WEIGHT_BYTES:
+        if variant in _MMA_WEIGHT_BYTES:  # kernels 5-6
             n = weight_scratch_bytes(variant, B, U)
             scratch = torch.empty(n, dtype=torch.uint8, device=dev)
-            args += [scratch.data_ptr(), n]
+            args += [*table_args(table), scratch.data_ptr(), n]
+        else:  # kernels 2-3
+            args += [*_stream_args(stream), *table_args(table)]
         UDEDUP_KERNELS[variant].launch(dev, *args)
     return out
 

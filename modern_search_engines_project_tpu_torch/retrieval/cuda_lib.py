@@ -39,13 +39,17 @@ LINK_FLAGS = ("-shared",)
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # launcher symbol -> argtypes (the trailing _P is the stream)
 SIGNATURES = {
-    "mse_bm25_slots": [_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64, _P],
-    "mse_bm25_slots_udedup_bf16": [
-        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
+    "mse_bm25_slots": [
+        _P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64, _P, _I64, _P,
+        _I64, _P,
     ],
-    "mse_bm25_slots_udedup_i8": [
-        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
-    ],
+    **{
+        sym: [
+            _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
+            _I64, _P,
+        ]
+        for sym in ("mse_bm25_slots_udedup_bf16", "mse_bm25_slots_udedup_i8")
+    },
     **{
         sym: [
             _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,

@@ -374,12 +374,15 @@ class SlotStream:
     Group ``g`` (class-concatenated order, i.e. the kernel's output column
     block ``g``) occupies ``rows[g] * SLOT_COLS`` elements of ``terms`` /
     ``impact`` starting at ``group_off[g]``, row-major ``[rows, SLOT_COLS]``.
+    ``group_order`` lists the groups deepest first (ties in group order):
+    the order in which the slot kernels start them.
     """
 
     terms: torch.Tensor  # int32 [total], pad -1
     impact: torch.Tensor  # float32 [total], pad 0
     group_off: torch.Tensor  # int64 [n_groups]
     group_rows: torch.Tensor  # int32 [n_groups]
+    group_order: torch.Tensor  # int32 [n_groups]
 
     @property
     def n_groups(self) -> int:
@@ -417,6 +420,11 @@ def pack_slot_classes(slot_terms, slot_impact, device):
         impact=impact,
         group_off=torch.tensor(offs, dtype=torch.int64, device=device),
         group_rows=torch.tensor(rows, dtype=torch.int32, device=device),
+        group_order=torch.from_numpy(
+            np.argsort(-np.asarray(rows, np.int64), kind="stable").astype(
+                np.int32
+            )
+        ).to(device),
     )
     return tuple(views_t), tuple(views_i), stream
 
@@ -558,7 +566,8 @@ class DeviceIndex:
         ]
         if self.slot_stream is not None:
             st = self.slot_stream
-            ts += [st.terms, st.impact, st.group_off, st.group_rows]
+            ts += [st.terms, st.impact, st.group_off, st.group_rows,
+                   st.group_order]
         if self.blocked is not None:
             b = self.blocked
             ts += [b.terms, b.impact, b.doc_off]

@@ -238,8 +238,8 @@ def test_slot_wrappers_pass_any_u_and_any_t(built, monkeypatch):
     _, _, pi = built
     stream = dataclasses.replace(
         pi.slot_stream,
-        **{f: meta(getattr(pi.slot_stream, f))
-           for f in ("terms", "impact", "group_off", "group_rows")},
+        **{f.name: meta(getattr(pi.slot_stream, f.name))
+           for f in dataclasses.fields(pi.slot_stream)},
     )
     views = (pi.slot_terms, pi.slot_impact)
     rec = Recorder(monkeypatch, port.SLOTS_KERNEL, *port.UDEDUP_KERNELS.values())
@@ -257,3 +257,86 @@ def test_slot_wrappers_pass_any_u_and_any_t(built, monkeypatch):
     small_u, small_w = port.dedup_query_terms(tids[:1, :8], qtf[:1, :8])
     port.slots_udedup_keyed(stream, *views, meta(small_u), meta(small_w), "i8")
     assert rec.calls[-1][1][-2:] == (0, 0)
+
+
+# ---- host-side inputs of the streaming slot kernels (kernels 1-3) ----------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slot_stream_orders_groups_deepest_first(seed):
+    """``group_order`` is a permutation of the groups by descending depth,
+    ties in group order: the order in which kernels 1-3 start the items."""
+    from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+        pack_slot_classes,
+    )
+
+    rng = np.random.default_rng(seed)
+    n_docs, n_terms = 4096, 300
+    docs = rng.integers(0, n_docs, 30_000)
+    terms = rng.integers(0, n_terms, docs.size)
+    heavy = docs < 600  # long documents in a few groups: several strides
+    docs = np.concatenate([docs, docs[heavy]])
+    terms = np.concatenate([terms, rng.integers(0, n_terms, heavy.sum())])
+    pairs = np.unique(terms.astype(np.int64) * n_docs + docs)
+    t, d = pairs // n_docs, (pairs % n_docs).astype(np.int32)
+    indptr = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(np.bincount(t, minlength=n_terms), out=indptr[1:])
+    imp = rng.gamma(2.0, 1.5, d.size).astype(np.float32)
+    st, si, _ = build_slot_postings(indptr, d, imp, n_docs)
+    _, _, stream = pack_slot_classes(st, si, "cpu")
+    rows = stream.group_rows.numpy()
+    order = stream.group_order.numpy()
+    assert stream.group_order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(stream.n_groups))
+    assert len(set(rows.tolist())) > 1
+    want = sorted(range(stream.n_groups), key=lambda g: (-rows[g], g))
+    assert order.tolist() == want
+
+
+@pytest.mark.parametrize(
+    "B,T,words",
+    [
+        (1, 8, 0),
+        (64, 64, 0),  # 64 term slots a query still fit shared memory
+        # one 16-query chunk: 65 ids -> 2^8 slots, + 65 x 16 weights
+        (1, 65, 2 * 256 + 65 * 16),
+        # 17 x 80: two chunks of 16 x 80 ids -> 2^12 slots each
+        (17, 80, 2 * (2 * 4096 + 16 * 80 * 16)),
+        (16, 100, 2 * 4096 + 16 * 100 * 16),
+    ],
+)
+def test_slots_table_words(B, T, words):
+    """Kernel 1's device-memory query tables (csrc/bm25_slots.cu): none up
+    to 64 term slots a query, else one table per 16-query chunk."""
+    assert port.slots_table_words(B, T) == words
+
+
+def test_slot_wrappers_pass_stream_order_and_tables(built, monkeypatch):
+    """Kernels 1-3 get the deepest-first group order and the slot count
+    after ``ld_out``; kernel 1 gets query-table scratch above 64 term slots
+    a query, kernels 5-6 neither."""
+    _, _, pi = built
+    stream = dataclasses.replace(
+        pi.slot_stream,
+        **{f.name: meta(getattr(pi.slot_stream, f.name))
+           for f in dataclasses.fields(pi.slot_stream)},
+    )
+    views = (pi.slot_terms, pi.slot_impact)
+    rec = Recorder(monkeypatch, port.SLOTS_KERNEL,
+                   *port.UDEDUP_KERNELS.values())
+    n_slots = stream.terms.numel()
+    tids, qtf, uids, w = wide_batch()
+    port.slots_keyed(stream, *views, meta(tids), meta(qtf))
+    args = rec.calls[-1][1]
+    assert args[11:13] == (stream.group_order.data_ptr(), n_slots)
+    assert args[-1] == port.slots_table_words(17, 80) > 0
+    port.slots_keyed(stream, *views, meta(tids[:, :8]), meta(qtf[:, :8]))
+    assert rec.calls[-1][1][-2:] == (0, 0)
+    for variant in port.UDEDUP_KERNELS:
+        port.slots_udedup_keyed(stream, *views, meta(uids), meta(w), variant)
+        args = rec.calls[-1][1]
+        if variant in ("sublane", "i8"):
+            assert args[11:13] == (stream.group_order.data_ptr(), n_slots)
+            assert len(args) == 15
+        else:
+            assert args[12] == 2 * 4096 and len(args) == 15

@@ -172,8 +172,8 @@ def test_mma_wrappers_pass_any_u(built, monkeypatch):
     _, _, pi = built
     stream = dataclasses.replace(
         pi.slot_stream,
-        **{f: meta(getattr(pi.slot_stream, f))
-           for f in ("terms", "impact", "group_off", "group_rows")},
+        **{f.name: meta(getattr(pi.slot_stream, f.name))
+           for f in dataclasses.fields(pi.slot_stream)},
     )
     views = (pi.slot_terms, pi.slot_impact)
     rec = Recorder(monkeypatch, *(port.UDEDUP_KERNELS[v] for v in MMA))

@@ -458,6 +458,123 @@ def test_mma_kernels_any_u(both_layouts, cuda):
                     stream, vt, vi, u, wt, SAME_AS[variant]))
 
 
+# ---- kernels 1-3: streaming design, any depth, any B, T and U --------------
+
+# Group depths of the streaming slot kernels' edges: they stage 16 rows at
+# a time in 8-row boxes, so one group of 8 rows (under one stage), one of
+# exactly one stage, one and a half stages, and deep groups ending on a
+# half stage.
+DEPTHS = (8, 16, 24, 40, 56, 72, 120, 136)
+
+
+@pytest.fixture(scope="module")
+def deep(cuda):
+    """8 groups of 512 docs at DEPTHS rows (each doc 0..depth postings of a
+    Zipf vocabulary of 400 terms; zero and negative impacts) in the slot
+    layout (strides set to DEPTHS) and the blocked layout."""
+    rng = np.random.default_rng(3)
+    n_terms, n_docs = 400, 512 * len(DEPTHS)
+    p = 1.0 / np.arange(1, n_terms + 1) ** 0.8
+    p /= p.sum()
+    pairs = []
+    for d in range(n_docs):
+        k = int(rng.integers(0, DEPTHS[d // 512] + 1))
+        pairs.append(rng.choice(n_terms, k, replace=False, p=p) * n_docs + d)
+    pairs = np.sort(np.concatenate(pairs))
+    terms, docs = pairs // n_docs, (pairs % n_docs).astype(np.int32)
+    indptr = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(np.bincount(terms, minlength=n_terms), out=indptr[1:])
+    impact = rng.gamma(2.0, 1.5, docs.size).astype(np.float32)
+    impact[::97] = 0.0
+    impact[::89] *= -1
+    csr = (indptr, docs, impact, n_docs)
+    st, si, col_unperm = build_slot_postings(
+        *csr, S_g=np.asarray(DEPTHS, np.int64)
+    )
+    vt, vi, stream = pack_slot_classes(st, si, cuda)
+    assert sorted(stream.group_rows.tolist()) == sorted(DEPTHS)
+    blk = pack_blocked(*build_blocked_postings(*csr), cuda)
+    cu = torch.as_tensor(col_unperm, device=cuda)
+    return (vt, vi, stream, cu), blk, n_terms, rng
+
+
+def _streaming_case(deep, cuda, tids, qtf, perm_seed, tol):
+    """Kernels 1-3 against their plain versions (keys equal), kernel 1
+    against kernel 7 and kernels 2-3 against kernel 6, bit for bit; the
+    U-dedup kernels get their uids in a shuffled order."""
+    (vt, vi, stream, cu), blk, _, _ = deep
+    B = tids.shape[0]
+    t = torch.as_tensor(tids, device=cuda)
+    q = torch.as_tensor(qtf, device=cuda)
+    before = SLOTS_KERNEL.launches
+    got1 = slots_keyed(stream, vt, vi, t, q)
+    torch.cuda.synchronize()
+    assert SLOTS_KERNEL.launches == before + 1
+    want1 = slots_plain(vt, vi, t, q)
+    torch.testing.assert_close(got1, want1, **tol)
+    assert torch.equal(got1 < 0, want1 < 0)
+    assert torch.equal(bm25_score_blocked(blk, t, q), _slots_key(got1, cu, B))
+    uids, w = dedup_query_terms(tids, qtf)
+    perm = np.random.default_rng(perm_seed).permutation(uids.size)
+    u = torch.as_tensor(uids[perm], device=cuda)
+    wt = torch.as_tensor(np.ascontiguousarray(w[:, perm]), device=cuda)
+    for variant, same in (("sublane", "wide"), ("i8", "wide_i8")):
+        before = UDEDUP_KERNELS[variant].launches
+        got = slots_udedup_keyed(stream, vt, vi, u, wt, variant)
+        torch.cuda.synchronize()
+        assert UDEDUP_KERNELS[variant].launches == before + 1
+        want = slots_udedup_plain(vt, vi, u, wt, variant)
+        torch.testing.assert_close(got, want, **tol)
+        assert torch.equal(got < 0, want < 0)
+        torch.testing.assert_close(got, got1, **tol)
+        assert torch.equal(
+            got, slots_udedup_keyed(stream, vt, vi, u, wt, same)
+        )
+    assert (want1 >= 0).any() and (want1 == -1).any()
+    return want1
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 16, 33, 64, 65, 128])
+def test_streaming_slot_kernels_any_depth_and_batch(deep, cuda, B):
+    """Groups of 8-136 rows (not all whole stages), one query chunk or
+    several (kernel 1: 16 queries a block; kernels 2-3: 16, or 64 above
+    B = 16), with a repeated term (query 0), shared terms (query 1), an
+    all-pad query (query 2) and negative impacts.  A column sums up to 136
+    matched products and scores pass 100, where one f32 ulp is 7.6e-6:
+    the plain version sums the rows in another order, hence WIDE_TOL."""
+    _, _, n_terms, rng = deep
+    tids, qtf = _blocked_queries(rng, B, 8, n_terms)
+    want = _streaming_case(deep, cuda, tids, qtf, B, WIDE_TOL)
+    if B > 2:
+        assert (want[2] == -1).all()
+
+
+@pytest.mark.parametrize("B,T", [(1, 64), (1, 80), (16, 64), (17, 80),
+                                 (65, 80)])
+def test_streaming_slot_kernels_any_t(deep, cuda, B, T):
+    """T = 64 term slots a query (kernel 1's last shared-memory table) and
+    T = 80 (its device-memory query tables, one per 16-query chunk); the
+    U-dedup kernels on the same batches, at U up to 1152."""
+    _, _, n_terms, rng = deep
+    tids, qtf = _blocked_queries(rng, B, T, n_terms)
+    _streaming_case(deep, cuda, tids, qtf, T, WIDE_TOL)
+
+
+@pytest.mark.parametrize("B,T,n_u", [(14, 76, 1024), (20, 54, 1024),
+                                     (17, 80, 1152), (40, 80, 2048)])
+def test_streaming_udedup_kernels_any_u(both_layouts, cuda, B, T, n_u):
+    """U = 1024 distinct ids (the last shared-memory uid table, 2^11
+    slots; at B = 20 the bf16 weights of 64-query chunks do not fit shared
+    memory, so kernel 2 takes 16-query chunks) and above (the device-memory
+    uid table, weights read from w) on kernels 2-3, and kernel 1 at
+    T = 54-80, on the 12k-doc corpus, held as _streaming_case holds
+    them."""
+    n_terms = both_layouts[2]
+    tids, qtf = _wide_queries(np.random.default_rng(11), B, T, n_terms)
+    assert dedup_query_terms(tids, qtf)[0].size == n_u
+    _streaming_case(both_layouts, cuda, tids, qtf, n_u, WIDE_TOL)
+
+
 def test_wrappers_refuse_wrong_inputs(slots, cuda):
     views_t, views_i, stream, n_terms, _ = slots
     tids = torch.zeros(2, 4, dtype=torch.int64, device=cuda)
