@@ -20,8 +20,9 @@ non-zero exit):
      version on the same tensors at the path's shapes, with times (CUDA
      events; kernels and library calls queued behind a sleep kernel, so
      the host's enqueue is not counted); kernel 4 also beside one einsum +
-     top-2 and beside the bank product alone; the blocked kernel's scores
-     also against the slot kernel's, bit for bit;
+     top-2 and beside the bank product alone; the blocked kernels' scores
+     also against the slot kernels', bit for bit (kernel 7 against kernel
+     1, kernel 8 against kernel 2 on the same ids and weights);
      the U-dedup kernels 2, 3, 5 ("acc") and 6 ("wide", "wide_i8") at
      B = 16 / U = 128, B = 64 / U = 256 and B = 64 / U = 512, kernel 6
      also bit for bit against kernels 2 and 3;
@@ -78,6 +79,7 @@ from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
 )
 from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
     UDEDUP_KERNELS,
+    _slots_key,
     bm25_score_slots,
     dedup_query_terms,
     slots_keyed,
@@ -115,6 +117,7 @@ from modern_search_engines_project_tpu_torch.utils.timing import StageTimes
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 BF16_OPS = 989e12
+INT8_OPS = 1979e12
 
 # Tolerances.  BM25: every kernel sums at most T nonzero f32 products per
 # doc, in another order than its plain version -> keyed scores to 1e-5.
@@ -220,7 +223,7 @@ def check_kernels(eng, dfs, rng):
                             ("wide", 64), ("wide_i8", 64)):
         kern = UDEDUP_KERNELS[variant]
         rtol = WIDE_RTOL if variant == "acc" else 0.0
-        err, main = 0.0, None
+        err, main, by_batch = 0.0, None, {}
         for B, by_df in cases:
             tids, qtf = sample_terms(rng, dfs, B, 8, by_df)
             uids, w = dedup_query_terms(tids, qtf)
@@ -251,14 +254,23 @@ def check_kernels(eng, dfs, rng):
             wide_ops = 2 * Bp * Up * st.terms.numel()  # one product a slot
             tc_ops = {"acc": 8 * Bp * Up * st.n_cols,  # four a doc column
                       "wide": wide_ops, "wide_i8": wide_ops}.get(variant)
+            # kernel 6's own formulation: its product over every slot on the
+            # tensor cores (bf16 or int8 peak), beside the byte bound
+            tc_ms = (tc_ops / (INT8_OPS if variant == "wide_i8" else BF16_OPS)
+                     * 1e3 if variant in ("wide", "wide_i8") else None)
             log(f"  {kern.name} B={B} U={u.numel()}: err {e:.2e} kernel "
                 f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
                 f"{matched} of {n_real} postings matched)"
                 + (f"; tensor-core product {tc_ops:.3e} operations"
                    if tc_ops else ""))
+            if by_df:
+                by_batch[f"B={B} U={u.numel()}"] = dict(
+                    ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
             if B == main_b and by_df:
                 main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
-        rows[kern.name] = dict(main, max_abs_err=err)
+                if tc_ms is not None:
+                    main["formulation_bound_ms"] = tc_ms
+        rows[kern.name] = dict(main, max_abs_err=err, by_batch=by_batch)
 
     # kernel 4: every bucket, B in {1, 16, 64}
     err4, by_batch = 0.0, {}
@@ -391,7 +403,8 @@ def to_artifact_order(keyed, doc_perm, n_docs):
 def check_blocked_kernels(eng_b, eng_s, dfs, rng):
     """Phase 4, blocked path: kernels 7 and 8 against their plain versions
     on the blocked engine's tensors; kernel 7 also against slot kernel 1
-    on the slot engine (both mapped to artifact doc order)."""
+    and kernel 8 against slot kernel 2 on the slot engine (both mapped to
+    artifact doc order), bit for bit."""
     d = eng_b.didx
     blk = d.blocked
     dev = eng_b.device
@@ -447,7 +460,7 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
     rows["bm25_blocked"] = dict(by_batch["B=1"], max_abs_err=err,
                                 by_batch=by_batch)
 
-    err, main = 0.0, None
+    err, main, by_batch = 0.0, None, {}
     for B, pool in ((1, None), (16, None), (64, None), (64, 100)):
         tids, qtf = sample_terms(rng, dfs, B, 8, pool=pool)
         uids, w = dedup_query_terms(tids, qtf)
@@ -468,9 +481,25 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
         log(f"  bm25_blocked_udedup B={B} U={u.numel()}: err {e:.2e} kernel "
             f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
             f"{matched} of {n_real} postings matched)")
+        if B == 64:
+            # kernel 8 sums each doc's matched bf16(w) * impact in posting
+            # order, as slot kernel 2 sums its rows: equal bit for bit
+            slot = slots_udedup_keyed(eng_s.didx.slot_stream,
+                                      eng_s.didx.slot_terms,
+                                      eng_s.didx.slot_impact, u, wt, "sublane")
+            n = eng_b.art.n_docs
+            a = to_artifact_order(got, d.doc_perm, n)
+            b = to_artifact_order(_slots_key(slot, eng_s.didx.col_unperm, B),
+                                  eng_s.didx.doc_perm, n)
+            check(torch.equal(a, b), f"bm25_blocked_udedup vs "
+                  f"bm25_slots_udedup_sublane B=64 U={u.numel()}: not equal")
+            log(f"  bm25_blocked_udedup == bm25_slots_udedup_sublane at B=64 "
+                f"U={u.numel()} in artifact doc order, bit for bit")
+        by_batch[f"B={B}{' shared' if pool else ''} U={u.numel()}"] = dict(
+            ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
         if pool:  # the engine's kernel-8 branch: B = 64 sharing terms
             main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
-    rows["bm25_blocked_udedup"] = dict(main, max_abs_err=err)
+    rows["bm25_blocked_udedup"] = dict(main, max_abs_err=err, by_batch=by_batch)
     return rows
 
 
@@ -856,7 +885,8 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
-            **{key: r[key] for key in ("bound_old_ms", "by_batch")
+            **{key: r[key] for key in ("bound_old_ms", "formulation_bound_ms",
+                                       "by_batch")
                if key in r},
         })
     log(f"total {time.time() - t_start:.1f} s")

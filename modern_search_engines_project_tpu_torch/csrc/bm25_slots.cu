@@ -4,6 +4,7 @@
 //   mse_bm25_slots             <- _kernel_slots (:190) with its tail _accum_keyed (:165)
 //   mse_bm25_slots_udedup_bf16 <- _kernel_slots_udedup (:241), variant "sublane"
 //   mse_bm25_slots_udedup_i8   <- _kernel_slots_udedup_i8 (:289), variant "i8"
+//   mse_bm25_slots_udedup_acc  <- _kernel_slots_udedup_acc (:380), variant "acc"
 //
 // What they compute.  The doc-slot postings are groups of 512 doc columns;
 // column c of group g holds one document's postings stacked down its rows
@@ -35,7 +36,7 @@
 // memory round trip, over up to 128 rows, with one 4-byte load in flight a
 // thread (latency-bound, 7-14x the bound), and the U-dedup kernels read
 // and hashed every posting once per 8 queries.  Here one body serves all
-// three kernels:
+// three kernels (and kernel 5, below, with a fold of its own):
 //   * Work items.  An item is 128 columns of one group (a rectangle of the
 //     flat row-major stream, since every group starts at a multiple of 512
 //     elements).  Blocks of 512 threads are persistent, as many as fit on
@@ -89,6 +90,43 @@
 // of 64 queries a block (U > 1024, their weights read from w) take 64 and
 // spill 68-80 bytes.
 //
+// Kernel 5 ("acc") computes the TPU kernel's function: per column,
+// X[u, col] = the impact of the posting matching id u (at most one a
+// column) and P[u, col] = 1, then S = wq @ x1 + wq @ x2 + wq @ x3 (X split
+// three ways into bf16) and C = wp @ P with wq = bf16(w[:B]) and
+// wp = bf16(w[B:2B]), the presence rows; keyed on (C, S).  Its first design
+// (a block per 64 columns, 131 KB of densely cleared split X and P, plain
+// dependent loads, WMMA with the weights reloaded from device memory at
+// every k-step) took 22x the bound.  Now it shares the streaming front
+// above -- items deepest first, the TMA ring, the filter, one lookup per
+// posting for 64 queries, impacts of matched postings only -- and replaces
+// the fold: X is very sparse (a column matches a few of the U ids), so each
+// stage's matches (u, impact) are appended to their column's list in
+// shared memory (all query groups of the column, by shared atomics), and
+// when the item ends (or a list could not take another stage) the block
+// multiplies the lists out with mma.sync m16n8k16.  Warp v builds the B
+// fragments of columns [8 v, 8 v + 8) in registers from the lists: a lane
+// queues its column's matches that fall on its k rows once, then, for each
+// k16 block that some column of the tile matched, makes the bf16 split of
+// the ones in that block; its A fragments of wq and wp, packed in fragment
+// order by pack_afrag_kernel, are staged in shared memory once a block and
+// read with one 16-byte load a lane.  The three parts of S sum apart and
+// meet as (S1 + S2) + S3, as in the plain version; within a part the
+// tensor cores sum over u in another order, so kernel 5 is held to its
+// plain version to 1e-5 + 1e-6 |score|, keys equal (at the bench shapes
+// its output equals the first design's bit for bit).
+//
+// What bounds kernel 5 now (kernel_times.py, NVIDIA H100 80GB HBM3,
+// 700 W): 0.051 ms at B = 16 / U = 128 and 0.115 ms at B = 64 / U = 256
+// (0.136 and 0.392 before), 4.1x and 6.3x the bound.  At 64 queries a
+// block it runs one block an SM: 171 KB of shared memory (64 KB of A
+// fragments, 32.5 KB of column lists, 66 KB of stream) and ~120 registers
+// a thread for the 64 accumulators of S1, S2, S3 and C, so the stream has
+// half kernel 3's occupancy.  Per-phase clocks of a throwaway copy at
+// B = 64 / U = 256: the products and the item ends take ~45% (issue-bound:
+// A-fragment loads, mma.sync and the B fragments' making), the lookups
+// ~22%, the gathering ~15%.
+//
 // Any T and any U.  Kernel 1 builds its chunk's table (16 queries) in
 // shared memory up to kMaxT term slots a query; beyond, one small kernel
 // builds each chunk's table in device memory first.  Kernels 2-3 keep the
@@ -138,17 +176,6 @@ __host__ __device__ constexpr int row_bytes(int chunk_bytes) {
                                       : (chunk_bytes + 15) / 16 + 1) * 16;
 }
 
-// The membership filter in front of a table of 2^bits slots: 2^fbits bits,
-// 64 a table slot (about 128 an id), at least 2^12 and at most 2^15 (4 KB).
-__host__ __device__ constexpr int filter_bits(int bits) {
-  return bits + 6 > 15 ? 15 : bits + 6 < 12 ? 12 : bits + 6;
-}
-
-// The filter's bit of a term id: a multiplicative hash of its own.
-__device__ __forceinline__ uint32_t filter_bit(int32_t key, int fbits) {
-  return ((uint32_t)key * 0x85EBCA77u) >> (32 - fbits);
-}
-
 // Dynamic shared memory of the ring, the impact tiles and the row masks,
 // plus alignment.
 constexpr size_t kStreamSmem =
@@ -156,7 +183,7 @@ constexpr size_t kStreamSmem =
 
 // ... and with the filter of a table of 2^bits slots.
 inline size_t stream_smem(int bits) {
-  return kStreamSmem + ((size_t)1 << (filter_bits(bits) - 3));
+  return kStreamSmem + uid_table::filter_bytes(bits);
 }
 
 __device__ __forceinline__ float keyed(float s, bool present) {
@@ -244,6 +271,68 @@ __device__ __forceinline__ void store_words(void* p,
   }
 }
 
+// ---- kernel 5 ("acc"): the products on the tensor cores -------------------
+
+// How a block's walk ends in each stage: kernels 1-3 fold weights into
+// per-thread sums (kFold); kernel 5 gathers each column's matches and
+// multiplies them out with mma.sync, its A fragments staged in shared
+// memory (kAccShared) or read from device memory (kAccGlobal).
+constexpr int kFold = 0;
+constexpr int kAccShared = 1;
+constexpr int kAccGlobal = 2;
+constexpr int kKc = 32;  // kernel 5: matches a column's list holds
+
+// bf16 pair (lo, hi) as one 32-bit word, lo in the low half.
+__device__ __forceinline__ uint32_t bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The TPU kernel's 3-way bf16 split of x (bm25_pallas.py:434-437):
+// x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2).
+__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&p)[3]) {
+  p[0] = __float2bfloat16(x);
+  const float r1 = x - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16(r1);
+  p[2] = __float2bfloat16(r1 - __bfloat162float(p[1]));
+}
+
+// d += a (16 x 16, row-major fragment) @ b (16 x 8, col-major fragment),
+// bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// Kernel 5's A operands in fragment order: for m16 tile mt of the padded
+// queries and k16 block kb of the ids, lane l's four words of the mma.sync
+// A fragment at afrag[(mt * KB + kb) * 32 + l] -- bf16(w[q, u]) for wq
+// (rows [0, B)), then, Mt * KB * 32 entries on, bf16(w[B + q, u]) for wp;
+// zero past B and U.  Word r of lane l holds (q, u) and (q, u + 1) with
+// q = mt * 16 + l / 4 + 8 (r & 1), u = kb * 16 + 2 (l % 4) + 8 (r >> 1).
+__global__ void pack_afrag_kernel(const float* __restrict__ w, int B, int U,
+                                  int KB, int Mt, uint32_t* __restrict__ dst) {
+  const int64_t per = (int64_t)Mt * KB * 128;  // words of one operand
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < 2 * per;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int op = (int)(i / per);
+    const int64_t j = i - op * per;
+    const int r = (int)(j & 3), l = (int)((j >> 2) & 31);
+    const int64_t tile = j >> 7;
+    const int mt = (int)(tile / KB), kb = (int)(tile - (int64_t)mt * KB);
+    const int q = mt * 16 + l / 4 + 8 * (r & 1);
+    const int u = kb * 16 + 2 * (l % 4) + 8 * (r >> 1);
+    const float* row = w + (int64_t)(op * B + q) * U;
+    const float v0 = q < B && u < U ? row[u] : 0.f;
+    const float v1 = q < B && u + 1 < U ? row[u + 1] : 0.f;
+    dst[i] = bf16x2(__float2bfloat16(v0), __float2bfloat16(v1));
+  }
+}
+
 // One work item of a block: its group, the group's depth and first row in
 // the stream, and the first column of the item.
 struct Item {
@@ -256,23 +345,25 @@ struct Cursor {
   int k, r0;
 };
 
-// One body for the three kernels.  kPlain: kernel 1 (qids = tids [B, n],
+// One body for the four kernels.  kPlain: kernel 1 (qids = tids [B, n],
 // qw = qtf [B, n], weights m from the chunk's query table, f32); otherwise
-// kernels 2-3 (qids = uids [n], qw = w [2B, n], weights of type W).
+// kernels 2-3 (qids = uids [n], qw = w [2B, n], weights of type W) or, kAcc,
+// kernel 5 (its A fragments at afrag, pack_afrag_kernel's layout).
 // kSmem: tables and weights in shared memory; otherwise g_table holds the
 // query tables of kernel 1 (chunk c at c * g_stride) or the uid table of
-// kernels 2-3, and kernels 2-3 read weights from w.  A block takes query
-// chunk blockIdx.x % n_chunks of kQGroups * QPT queries and walks every
-// item of the stream.
-template <typename W, int QPT, bool kPlain, bool kSmem>
-__global__ void __launch_bounds__(kThreads, 2) slots_kernel(
+// kernels 2-3 and 5, and kernels 2-3 read weights from w.  A block takes
+// query chunk blockIdx.x % n_chunks of kQGroups * QPT queries and walks
+// every item of the stream.
+template <typename W, int QPT, bool kPlain, bool kSmem, int kAcc = kFold>
+__global__ void __launch_bounds__(kThreads, kAcc != kFold && QPT == 16 ? 1 : 2)
+slots_kernel(
     const __grid_constant__ CUtensorMap terms, const float* __restrict__ impact,
     const int64_t* __restrict__ group_off,
     const int32_t* __restrict__ group_rows,
     const int32_t* __restrict__ group_order, int n_items, int n_chunks,
     const int32_t* __restrict__ qids, const float* __restrict__ qw, int B,
     int n, int bits, const int32_t* __restrict__ g_table, int64_t g_stride,
-    float* __restrict__ out, int64_t ld_out) {
+    float* __restrict__ out, int64_t ld_out, const uint4* __restrict__ afrag) {
   constexpr int kChunk = kQGroups * QPT;
   constexpr int kWords = QPT * (int)sizeof(W) / 4;
   // weight row stride: padded in shared memory, kChunk weights in device
@@ -291,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
   // bit r of s_mask[stage % kMaskBufs][c]: row r of column c matched
   uint32_t(*s_mask)[kSliceCols] =
       reinterpret_cast<uint32_t(*)[kSliceCols]>(ximp + kImpBufs * kTile);
-  const int fbits = filter_bits(bits);
+  const int fbits = uid_table::filter_bits(bits);
   uint32_t* s_filter = &s_mask[kMaskBufs][0];
   int32_t* s_keys =
       reinterpret_cast<int32_t*>(s_filter + (1 << (fbits - 5)));
@@ -300,6 +391,16 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
   // kernels 2-3: bit i of s_pmask[u * kQGroups + qg]: query qg * QPT + i has
   // weight > 0 on id u (after the weights, 16-byte rows)
   uint32_t* s_pmask = reinterpret_cast<uint32_t*>(s_w + (size_t)n * kRow);
+  // kernel 5, after the filter and the table (kSmem): its A fragments
+  // (kAccShared; wq's tiles, then wp's), then each column's list of
+  // matches (count, ids u, impacts).  Every part starts 16-byte aligned.
+  const int KB = (n + 15) / 16;                // k16 blocks of the ids
+  const int mt_alloc = (min(kChunk, B) + 15) / 16;  // m16 tiles a block holds
+  uint4* s_a = reinterpret_cast<uint4*>(kSmem ? s_slots + (1 << bits) : s_keys);
+  int* s_n = reinterpret_cast<int*>(
+      s_a + (kAcc == kAccShared ? 2 * mt_alloc * KB * 32 : 0));
+  int32_t* s_lu = s_n + kSliceCols;  // a match's id u and its impact
+  float* s_lx = reinterpret_cast<float*>(s_lu + kSliceCols * kKc);
 
   const int tid = threadIdx.x;
   const int col = tid % kSliceCols, qg = tid / kSliceCols;
@@ -370,6 +471,18 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
   }
 
   // The block's tables, while the first stages stream in.
+  if constexpr (kAcc != kFold) {
+    if constexpr (kAcc == kAccShared) {  // this block's m16 tiles of wq, wp
+      const int per = ((nq + 15) / 16) * KB * 32;
+      const int64_t src0 = (int64_t)(q0 / 16) * KB * 32;
+      const int64_t wp_at = (int64_t)((B + 15) / 16) * KB * 32;
+      for (int i = tid; i < 2 * per; i += kThreads) {
+        const int op = i >= per, j = i - op * per;
+        s_a[op * mt_alloc * KB * 32 + j] = afrag[op * wp_at + src0 + j];
+      }
+    }
+    for (int i = tid; i < kSliceCols; i += kThreads) s_n[i] = 0;
+  }
   const int32_t* keys;
   const int32_t* slots;
   const unsigned char* wrows;  // weight row u at wrows + u * kRow
@@ -378,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
       uid_table::build_query_table(s_tids, s_qtf, nq, n, bits, s_keys,
                                    s_slots, reinterpret_cast<float*>(s_w),
                                    kRow / 4, &s_count);  // ends with a barrier
-    } else {
+    } else if constexpr (kAcc == kFold) {
       // w[:B] transposed into [U][kChunk], cast as the TPU kernel casts it,
       // and the presence masks; the presence rows [B, 2B) are not read:
       // presence is weight > 0.  A thread converts the QPT weights of one
@@ -402,6 +515,8 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
         s_pmask[i % n * kQGroups + g] = pm;
       }
       uid_table::build_shared(s_keys, s_slots, qids, n, bits);  // barriers
+    } else {
+      uid_table::build_shared(s_keys, s_slots, qids, n, bits);  // barriers
     }
     keys = s_keys, slots = s_slots, wrows = s_w;
   } else {
@@ -409,21 +524,11 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
     keys = t, slots = t + (1 << bits);
     wrows = reinterpret_cast<const unsigned char*>(slots + (1 << bits));
   }
-  // The filter: one bit for each id of the table, set by its own hash.  Most
-  // postings match no query term; their lookup ends at a clear bit, with one
-  // shared-memory load, before any probe of the table.
-  for (int i = tid; i < (1 << (fbits - 5)); i += kThreads) s_filter[i] = 0u;
+  // The filter of the table's ids (uid_table.cuh): most postings match no
+  // query term, and their lookup ends at a clear bit.
   for (int i = tid; i < kMaskBufs * kSliceCols; i += kThreads)
     (&s_mask[0][0])[i] = 0u;
-  __syncthreads();
-  for (int i = tid; i < (1 << bits); i += kThreads) {
-    const int32_t k = keys[i];
-    if (k != uid_table::kEmpty) {
-      const uint32_t b = filter_bit(k, fbits);
-      atomicOr(s_filter + (b >> 5), 1u << (b & 31));
-    }
-  }
-  __syncthreads();
+  uid_table::build_filter(s_filter, fbits, keys, bits);  // barriers
 
   // The weights of this thread's QPT queries for distinct id u, and the
   // queries among them whose weight is > 0 (bit i: query qg * QPT + i).
@@ -457,6 +562,111 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
 #pragma unroll
   for (int i = 0; i < QPT; ++i) acc[i] = 0.f;
 
+  // Kernel 5: warp v owns the n8 tile of columns [8 v, 8 v + 8) of the
+  // item and, for every m16 tile of the block's queries, the sums
+  // S1 = wq @ x1, S2 = wq @ x2, S3 = wq @ x3 and C = wp @ P over it
+  // (mma.sync fragments: row q = mt * 16 + lane / 4 + 8 (i >> 1), column
+  // 8 v + 2 (lane % 4) + (i & 1) for element i).  The three parts are
+  // summed apart, as the TPU kernel and the plain version sum them: a part
+  // of an impact times a small-integer weight is exact in f32, and so are
+  // the sums of a column's few such products of one part, while the parts
+  // together span more bits than f32 holds.
+  constexpr int kMt = kChunk / 16;
+  const int n_mt = (nq + 15) / 16;
+  float S1[kMt][4], S2[kMt][4], S3[kMt][4], C[kMt][4];
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) S1[m][i] = S2[m][i] = S3[m][i] = C[m][i] = 0.f;
+  // Add the products of the matches gathered in the column lists.  Lane l
+  // builds its B fragments (k = ids, n = columns) from the list of column
+  // 8 wp + l / 4: a column holds each id at most once, so a fragment word
+  // is a part of the split impact of the one match with that id, or 0,
+  // and only the
+  // k16 blocks that some column of the tile matched are multiplied.
+  auto acc_product = [&]() {
+    const int lane = tid % 32, t4 = lane & 3;
+    const int c = (tid / 32) * 8 + lane / 4;
+    const int n_c = s_n[c];
+    const int32_t* cu = s_lu + c * kKc;
+    const float* cx = s_lx + c * kKc;
+    // This lane's matches: ids on its k rows 2 t4, 2 t4 + 1, 2 t4 + 8 and
+    // 2 t4 + 9 of their k16 block, queued as list slots (5 bits each, up
+    // to 6; past that the lane rescans its column's list).
+    uint32_t queue = 0;
+    int n_own = 0;
+    for (int e = 0; e < n_c; ++e)
+      if (((cu[e] & 7) >> 1) == t4) {
+        if (n_own < 6) queue |= (uint32_t)e << (5 * n_own);
+        ++n_own;
+      }
+    const bool many = n_own > 6;
+    auto each = [&](auto&& fn) {
+      if (!many) {
+        uint32_t q = queue;
+        for (int i = 0; i < n_own; ++i, q >>= 5) fn((int)(q & 31));
+      } else {
+        for (int e = 0; e < n_c; ++e)
+          if (((cu[e] & 7) >> 1) == t4) fn(e);
+      }
+    };
+    const uint4* aq;
+    const uint4* ap;
+    if constexpr (kAcc == kAccShared) {
+      aq = s_a, ap = s_a + mt_alloc * KB * 32;
+    } else {
+      aq = afrag + (int64_t)(q0 / 16) * KB * 32;
+      ap = aq + (int64_t)((B + 15) / 16) * KB * 32;
+    }
+    for (int kb0 = 0; kb0 < KB; kb0 += 32) {
+      uint32_t mine = 0;  // k16 blocks (from kb0) of this lane's matches
+      each([&](int e) {
+        const int kb = (cu[e] >> 4) - kb0;
+        if ((unsigned)kb < 32u) mine |= 1u << kb;
+      });
+      uint32_t todo = __reduce_or_sync(0xffffffffu, mine);
+      while (todo) {
+        const int kb = kb0 + __ffs(todo) - 1;
+        todo &= todo - 1;
+        // B fragment words of x1, x2, x3 and P: word h holds k rows
+        // 2 t4 + 8 h (low half) and 2 t4 + 8 h + 1 (high half)
+        uint32_t x1a = 0, x1b = 0, x2a = 0, x2b = 0, x3a = 0, x3b = 0;
+        uint32_t pa = 0, pb = 0;
+        each([&](int e) {
+          const int u = cu[e];
+          if ((u >> 4) != kb) return;
+          const int sh = 16 * (u & 1);
+          __nv_bfloat16 x[3];
+          split3(cx[e], x);
+          const uint32_t x1 = (uint32_t)__bfloat16_as_ushort(x[0]) << sh;
+          const uint32_t x2 = (uint32_t)__bfloat16_as_ushort(x[1]) << sh;
+          const uint32_t x3 = (uint32_t)__bfloat16_as_ushort(x[2]) << sh;
+          if (u & 8) {
+            x1b |= x1, x2b |= x2, x3b |= x3, pb |= 0x3f80u << sh;  // bf16 1.0
+          } else {
+            x1a |= x1, x2a |= x2, x3a |= x3, pa |= 0x3f80u << sh;
+          }
+        });
+#pragma unroll
+        for (int m = 0; m < kMt; ++m) {
+          if (m < n_mt) {
+            const int64_t at = ((int64_t)m * KB + kb) * 32 + lane;
+            uint4 a_q, a_p;
+            if constexpr (kAcc == kAccShared) {
+              a_q = aq[at], a_p = ap[at];
+            } else {
+              a_q = __ldg(aq + at), a_p = __ldg(ap + at);
+            }
+            mma_bf16(S1[m], a_q, x1a, x1b);
+            mma_bf16(S2[m], a_q, x2a, x2b);
+            mma_bf16(S3[m], a_q, x3a, x3b);
+            mma_bf16(C[m], a_p, pa, pb);
+          }
+        }
+      }
+    }
+  };
+
   Cursor look{0, 0}, fold{0, 0};  // the stage being looked up / folded
   const int lrow = tid / 32, lcol = (tid % 32) * 4;  // lookup: 4 columns
   for (int j = 0;; ++j) {
@@ -473,7 +683,7 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
         uint32_t fb[4], fw[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          fb[i] = filter_bit(term[i], fbits);
+          fb[i] = uid_table::filter_bit(term[i], fbits);
           fw[i] = term[i] >= 0 ? s_filter[fb[i] >> 5] : 0u;
         }
         uint32_t pass = 0;
@@ -522,6 +732,49 @@ __global__ void __launch_bounds__(kThreads, 2) slots_kernel(
     const int f = j - kLag;
     const int32_t* t = ring + (f % kStages) * kTile + col;
     const float* xs = ximp + (f % kImpBufs) * kTile + col;
+    if constexpr (kAcc != kFold) {
+      // Kernel 5: append the stage's matches (u, impact) to their column's
+      // list (query group qg takes rows qg, qg + 4, ...; the order within a
+      // list does not matter, a column holding each id at most once);
+      // multiply the lists out when the item ends or a list could not take
+      // another stage, then empty them.
+      uint32_t rows = s_mask[f % kMaskBufs][col] & (0x1111u << qg);
+      bool full = false;
+      while (rows) {
+        const int r = __ffs(rows) - 1;
+        rows &= rows - 1;
+        const int m = atomicAdd(s_n + col, 1);
+        s_lu[col * kKc + m] = t[r * kSliceCols];
+        s_lx[col * kKc + m] = xs[r * kSliceCols];
+        full |= m + 1 > kKc - kStageRows;
+      }
+      const bool end = fold.r0 + kStageRows >= s_items[fold.k].rows;
+      if (__syncthreads_or(end || full)) {
+        acc_product();
+        if (end) {  // keyed on C > 0 and S >= 0, then the next item from 0
+          const Item& it = s_items[fold.k];
+          const int lane = tid % 32;
+          const int64_t c0 = (int64_t)it.g * kCols + it.col0 + (tid / 32) * 8 +
+                             2 * (lane & 3);
+#pragma unroll
+          for (int m = 0; m < kMt; ++m) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int q = m * 16 + lane / 4 + 8 * (i >> 1);
+              if (q < nq)
+                out[(int64_t)(q0 + q) * ld_out + c0 + (i & 1)] =
+                    keyed((S1[m][i] + S2[m][i]) + S3[m][i], C[m][i] > 0.f);
+              S1[m][i] = S2[m][i] = S3[m][i] = C[m][i] = 0.f;
+            }
+          }
+        }
+        __syncthreads();  // every list read
+        if (qg == 0) s_n[col] = 0;
+      }
+      advance(fold);
+      if (!valid(fold)) break;
+      continue;
+    }
     if (active) {
       uint32_t rows = s_mask[f % kMaskBufs][col];
       while (rows) {
@@ -588,11 +841,11 @@ int encode_stream(CUtensorMap* map, const void* terms, int64_t n_slots) {
 // Launch one instantiation: as many persistent blocks as fit on the card
 // at once (occupancy at launch), G for each query chunk, G at most the
 // number of items.
-template <typename W, int QPT, bool kPlain, bool kSmem>
+template <typename W, int QPT, bool kPlain, bool kSmem, int kAcc = kFold>
 int run(const CUtensorMap& map, const Args& a, int bits,
         const int32_t* g_table, int64_t g_stride, size_t smem,
-        cudaStream_t s) {
-  auto kern = slots_kernel<W, QPT, kPlain, kSmem>;
+        cudaStream_t s, const uint4* afrag = nullptr) {
+  auto kern = slots_kernel<W, QPT, kPlain, kSmem, kAcc>;
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -616,7 +869,7 @@ int run(const CUtensorMap& map, const Args& a, int bits,
   kern<<<G * n_chunks, kThreads, smem, s>>>(
       map, a.impact, a.group_off, a.group_rows, a.group_order, n_items,
       n_chunks, a.qids, a.qw, a.B, a.n, bits, g_table, g_stride, a.out,
-      a.ld_out);
+      a.ld_out, afrag);
   return (int)cudaGetLastError();
 }
 
@@ -658,6 +911,65 @@ int launch_udedup(const void* terms, const Args& a, int64_t n_slots,
   const int32_t* t = (const int32_t*)table;
   return wide ? run<W, 16, false, false>(map, a, bits, t, 0, stream_smem(bits), s)
               : run<W, 4, false, false>(map, a, bits, t, 0, stream_smem(bits), s);
+}
+
+// Kernel 5.  scratch: its A fragments (pack_afrag_kernel), 2 * 2 *
+// round_up(B, 16) * round_up(U, 16) bytes; table as for kernels 2-3.  A
+// block takes 64 queries (16 at B <= 16) with their A fragments in shared
+// memory when they fit there, else it reads them from device memory.
+int launch_acc(const void* terms, const Args& a, int64_t n_slots, void* table,
+               int64_t table_len, void* scratch, int64_t scratch_len,
+               cudaStream_t s) {
+  const int U = a.n, B = a.B;
+  if (B < 1 || U < 1 || a.n_groups < 1 || (int64_t)a.n_groups > INT_MAX / kSlices)
+    return (int)cudaErrorInvalidValue;
+  const int KB = (U + 15) / 16, Mt = (B + 15) / 16;
+  if (scratch == nullptr || scratch_len < (int64_t)Mt * KB * 1024)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  int rc = encode_stream(&map, terms, n_slots);
+  if (rc != 0) return rc;
+  const int64_t words = (int64_t)Mt * KB * 256;
+  const int grid = (int)((words + 255) / 256 < 4096 ? (words + 255) / 256 : 4096);
+  pack_afrag_kernel<<<grid, 256, 0, s>>>(a.qw, B, U, KB, Mt, (uint32_t*)scratch);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const uint4* af = (const uint4*)scratch;
+  const bool wide = B > 16;  // 64 queries a block, else 16
+  // the stream and the filter, the table, the A fragments, the lists
+  auto smem = [&](int bits, bool table, int chunk, bool frags) {
+    const int mt = ((B < chunk ? B : chunk) + 15) / 16;
+    return stream_smem(bits) + (table ? (size_t)8 << bits : 0) +
+           (frags ? (size_t)mt * KB * 1024 : 0) + (size_t)kSliceCols * 4 +
+           (size_t)kSliceCols * kKc * 8;
+  };
+  if (U <= kMaxU) {
+    const int bits = uid_table::table_bits(U);
+    int dev = 0, max_smem = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (!wide)  // 16 queries' fragments fit at every U <= kMaxU (183 KB)
+      return run<__nv_bfloat16, 4, false, true, kAccShared>(
+          map, a, bits, nullptr, 0, smem(bits, true, 16, true), s, af);
+    if (smem(bits, true, 64, true) <= (size_t)max_smem)
+      return run<__nv_bfloat16, 16, false, true, kAccShared>(
+          map, a, bits, nullptr, 0, smem(bits, true, 64, true), s, af);
+    return run<__nv_bfloat16, 16, false, true, kAccGlobal>(
+        map, a, bits, nullptr, 0, smem(bits, true, 64, false), s, af);
+  }
+  const int bits = uid_table::global_bits(U);
+  if (table == nullptr || table_len < (int64_t)2 << bits)
+    return (int)cudaErrorInvalidValue;
+  rc = uid_table::build_global(a.qids, U, (int32_t*)table, bits, s);
+  if (rc != 0) return rc;
+  const int32_t* t = (const int32_t*)table;
+  return wide ? run<__nv_bfloat16, 16, false, false, kAccGlobal>(
+                    map, a, bits, t, 0, smem(bits, false, 64, false), s, af)
+              : run<__nv_bfloat16, 4, false, false, kAccGlobal>(
+                    map, a, bits, t, 0, smem(bits, false, 16, false), s, af);
 }
 
 Args make_args(const void* impact, const void* group_off,
@@ -738,6 +1050,21 @@ extern "C" int mse_bm25_slots_udedup_i8(
       make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
                 B, U, out, ld_out),
       n_slots, table, table_len, (cudaStream_t)stream);
+}
+
+// Kernel 5 ("acc").  table: as for kernels 2-3; scratch: its packed A
+// fragments (bm25_slots.weight_scratch_bytes).
+extern "C" int mse_bm25_slots_udedup_acc(
+    const void* terms, const void* impact, const void* group_off,
+    const void* group_rows, int n_groups, const void* uids, int U,
+    const void* w, int B, void* out, int64_t ld_out, void* table,
+    int64_t table_len, const void* group_order, int64_t n_slots,
+    void* scratch, int64_t scratch_len, void* stream) {
+  return launch_acc(
+      terms,
+      make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
+                B, U, out, ld_out),
+      n_slots, table, table_len, scratch, scratch_len, (cudaStream_t)stream);
 }
 
 extern "C" const char* mse_cuda_error_string(int code) {

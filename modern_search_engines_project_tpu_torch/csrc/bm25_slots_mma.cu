@@ -1,10 +1,11 @@
-// Slot-layout U-dedup BM25 kernels that recover the per-query weights as a
+// Slot-layout U-dedup BM25 kernel that recovers the per-query weights as a
 // matrix product on the tensor cores, for Hopper.
 //
-// Replaces the TPU kernels in modern_search_engines_project_tpu/retrieval/bm25_pallas.py:
+// Replaces the TPU kernel in modern_search_engines_project_tpu/retrieval/bm25_pallas.py:
 //   mse_bm25_slots_udedup_wide_bf16 <- _kernel_slots_udedup_wide (:327), i8=False ("wide")
 //   mse_bm25_slots_udedup_wide_i8   <- _kernel_slots_udedup_wide (:327), i8=True  ("wide_i8")
-//   mse_bm25_slots_udedup_acc       <- _kernel_slots_udedup_acc (:380)             ("acc")
+// (Kernel 5, "acc", shares the streaming body of kernels 1-3 in
+// bm25_slots.cu.)
 //
 // Same operands and keyed contract as the U-dedup kernels of bm25_slots.cu:
 // slot postings (term id int32 pad -1, impact f32 pad 0) walked through the
@@ -12,39 +13,25 @@
 // with small-integer weights in rows [0, B) and presence rows [B, 2B);
 // out[b, g*512 + c] = (count > 0 && score >= 0) ? score : -1.
 //
-// Unlike kernels 2-3 (which look up u* and read w[b, u*] directly), these
-// compute the TPU kernels' products on the tensor cores (nvcuda::wmma,
+// Unlike kernels 2-3 (which look up u* and read w[b, u*] directly), it
+// computes the TPU kernel's product on the tensor cores (nvcuda::wmma,
 // m16n16k16), the weights packed k16-blocked by pack_weights_kernel:
 //
-// "wide" / "wide_i8": a block owns 16 doc columns of one group and walks
-//   its rows 8 at a time (128 postings a step).  Each posting's u* (hash
-//   lookup, uid_table.cuh) sets one 1 in a zeroed 0/1 match tile MU
-//   [U chunk x 128 postings] in shared memory (reset after use), and
-//   mw = bf16(w[:B]) @ MU (f32 sums) or int8(w[:B]) @ MU (s32 sums) runs
-//   over U in chunks of 128.  Then, per (query, column), in row order:
-//   score += mw * impact, count += (mw > 0) -- presence derived from the
-//   weight, as on the TPU.  The product is exact (integer weights, 0/1
-//   matches), so the scores equal kernel 2's and 3's bit for bit.
-//   Bound: 2*B*U operations a posting slot on the tensor cores (989 TFLOP/s
-//   bf16, 1,979 TOP/s int8); per k16 step a warp reads its A tiles and one
-//   B tile from shared memory, so shared-memory bandwidth sets the pace.
-//   The weight rows stay in shared memory when they fit, else the A tiles
-//   are read from device memory (any U).
+// a block owns 16 doc columns of one group and walks its rows 8 at a time
+// (128 postings a step).  Each posting's u* (hash lookup, uid_table.cuh)
+// sets one 1 in a zeroed 0/1 match tile MU [U chunk x 128 postings] in
+// shared memory (reset after use), and mw = bf16(w[:B]) @ MU (f32 sums) or
+// int8(w[:B]) @ MU (s32 sums) runs over U in chunks of 128.  Then, per
+// (query, column), in row order: score += mw * impact, count += (mw > 0) --
+// presence derived from the weight, as on the TPU.  The product is exact
+// (integer weights, 0/1 matches), so the scores equal kernel 2's and 3's
+// bit for bit.  Bound: 2*B*U operations a posting slot on the tensor cores
+// (989 TFLOP/s bf16, 1,979 TOP/s int8); per k16 step a warp reads its A
+// tiles and one B tile from shared memory, so shared-memory bandwidth sets
+// the pace.  The weight rows stay in shared memory when they fit, else the
+// A tiles are read from device memory (any U).
 //
-// "acc": a block owns nc doc columns of one group (nc = 64, 32 or 16, the
-//   widest that fits U x nc x 4 bf16 in shared memory) and accumulates over
-//   ALL rows of the group X[u, col] = impact (a (term, doc) pair occurs at
-//   most once in a column) and P[u, col] = 1, stored split three ways into
-//   bf16 as on the TPU (x1 = bf16(X), x2 = bf16(X - x1),
-//   x3 = bf16(X - x1 - x2)).  Then S = wq@x1 + wq@x2 + wq@x3 and C = wp@P
-//   with wq = bf16(w[:B]) and wp = bf16(w[B:2B]) -- the presence rows, not
-//   derived from the weight.  U beyond the shared-memory budget is covered
-//   in chunks (the rows are walked once per chunk).  S differs from the
-//   other variants' row-order sums by an ulp or two (another sum order).
-//   Bound: the posting walk (8 bytes a slot) plus 8*B*U operations a doc
-//   column on the tensor cores.
-//
-// Both take any B (grid.y chunks of 64 queries, padded to 16) and any U
+// It takes any B (grid.y chunks of 64 queries, padded to 16) and any U
 // (padded to 128; above uid_table::kSmemMaxU the uid hash table lives in
 // device memory, as in bm25_slots.cu).
 
@@ -61,7 +48,6 @@ using namespace nvcuda;
 
 constexpr int kCols = 512;      // doc columns per group (SLOT_COLS)
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kQB = 64;         // queries per block (4 m16 tiles)
 constexpr int kUAlign = 128;    // U is padded to this
 constexpr int kSmemMax = 232448;  // 227 KB: what one block may use
@@ -71,9 +57,6 @@ constexpr int kWRows = 8;
 constexpr int kWCols = 16;
 constexpr int kWN = kWRows * kWCols;  // 128 = 8 n16 tiles, one per warp
 constexpr int kWKc = 128;
-
-// acc: shared memory for the split X and P (the rest: staging and table)
-constexpr int kAccXBudget = 196608;
 
 constexpr int kTableBytes = 2 * uid_table::kSmemSize * 4;
 
@@ -315,180 +298,6 @@ int launch_wide(const void* terms, const void* impact, const void* group_off,
   return (int)cudaGetLastError();
 }
 
-// ---- acc -------------------------------------------------------------------
-
-struct AccLayout {
-  int x, stage, table, total;
-  __host__ __device__ AccLayout(int uc, int nc, bool smem_table) {
-    x = 0;  // x1, x2, x3, P: each [uc/16][nc][16] bf16
-    stage = x + 4 * uc * nc * 2;
-    table = stage + kWarps * 256 * 4;
-    total = table + (smem_table ? kTableBytes : 0);
-  }
-};
-
-template <bool kSmemTable>
-__global__ void __launch_bounds__(kThreads) acc_kernel(
-    const int32_t* __restrict__ terms, const float* __restrict__ impact,
-    const int64_t* __restrict__ group_off, const int32_t* __restrict__ group_rows,
-    const int32_t* __restrict__ uids, int U, const __nv_bfloat16* __restrict__ wq,
-    const __nv_bfloat16* __restrict__ wp, int Bp, int Up, int B,
-    float* __restrict__ out, int64_t ld_out, const int32_t* __restrict__ g_table,
-    int g_bits, int nc, int uc) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const AccLayout L(uc, nc, kSmemTable);
-  const int split = uc * nc;  // elements of each of x1, x2, x3, P
-  bf16* s_x = (bf16*)(smem + L.x);
-  float* s_stage = (float*)(smem + L.stage);
-  int32_t* s_key = (int32_t*)(smem + L.table);
-  int32_t* s_slot = s_key + uid_table::kSmemSize;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int tiles = kCols / nc;
-  const int g = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) * nc;
-  const int q0 = blockIdx.y * kQB;
-  const int mt = min(kQB, Bp - q0) / 16;
-  const int nt = nc / 16;
-  const int pairs = mt * nt;  // (m16, n16) output tiles, <= 16: <= 2 a warp
-
-  if constexpr (kSmemTable) uid_table::build_shared(s_key, s_slot, uids, U);
-  const int bits = kSmemTable ? uid_table::kSmemBits : g_bits;
-  const int32_t* keys = kSmemTable ? s_key : g_table;
-  const int32_t* slots = kSmemTable ? s_slot : g_table + ((size_t)1 << g_bits);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> s1[2], s2[2], s3[2], cn[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::fill_fragment(s1[j], 0.f);
-    wmma::fill_fragment(s2[j], 0.f);
-    wmma::fill_fragment(s3[j], 0.f);
-    wmma::fill_fragment(cn[j], 0.f);
-  }
-  const int64_t base = group_off[g] + c0;
-  const int rows = group_rows[g];
-  for (int k0 = 0; k0 < Up; k0 += uc) {
-    const int kc = min(uc, Up - k0);
-    for (int i = tid; i < 4 * split * 2 / 16; i += kThreads)
-      ((int4*)s_x)[i] = make_int4(0, 0, 0, 0);
-    __syncthreads();
-    // X and P over every row of the group: distinct terms of a column land
-    // on distinct u, so no two threads write one element
-    for (int i = tid; i < rows * nc; i += kThreads) {
-      const int r = i / nc, c = i - r * nc;
-      const int64_t at = base + (int64_t)r * kCols + c;
-      const int32_t t = __ldg(terms + at);
-      if (t < 0) continue;
-      const int u = uid_table::lookup(keys, slots, bits, t) - k0;
-      if (u < 0 || u >= kc) continue;
-      const float X = __ldg(impact + at);
-      const bf16 x1 = __float2bfloat16(X);
-      const float r1 = X - __bfloat162float(x1);
-      const bf16 x2 = __float2bfloat16(r1);
-      const bf16 x3 = __float2bfloat16(r1 - __bfloat162float(x2));
-      const int e = ((u >> 4) * nc + c) * 16 + (u & 15);
-      s_x[e] = x1;
-      s_x[split + e] = x2;
-      s_x[2 * split + e] = x3;
-      s_x[3 * split + e] = __float2bfloat16(1.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int p = warp + j * kWarps;
-      if (p < pairs) {
-        const int m = p / nt, n = p % nt;
-        for (int kb = 0; kb < kc / 16; ++kb) {
-          const int kg = k0 / 16 + kb;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> aq, ap;
-          wmma::load_matrix_sync(aq, wq + ((int64_t)kg * Bp + q0 + m * 16) * 16, 16);
-          wmma::load_matrix_sync(ap, wp + ((int64_t)kg * Bp + q0 + m * 16) * 16, 16);
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          const bf16* bp = s_x + (kb * nc + n * 16) * 16;
-          wmma::load_matrix_sync(b, bp, 16);
-          wmma::mma_sync(s1[j], aq, b, s1[j]);
-          wmma::load_matrix_sync(b, bp + split, 16);
-          wmma::mma_sync(s2[j], aq, b, s2[j]);
-          wmma::load_matrix_sync(b, bp + 2 * split, 16);
-          wmma::mma_sync(s3[j], aq, b, s3[j]);
-          wmma::load_matrix_sync(b, bp + 3 * split, 16);
-          wmma::mma_sync(cn[j], ap, b, cn[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // keyed epilogue: elementwise on same-shaped accumulators, staged per warp
-  float* st = s_stage + warp * 256;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int p = warp + j * kWarps;
-    if (p < pairs) {
-      const int m = p / nt, n = p % nt;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-#pragma unroll
-      for (int i = 0; i < o.num_elements; ++i)
-        o.x[i] = keyed((s1[j].x[i] + s2[j].x[i]) + s3[j].x[i], cn[j].x[i]);
-      wmma::store_matrix_sync(st, o, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int q = q0 + m * 16 + e / 16;
-        if (q < B)
-          out[(int64_t)q * ld_out + (int64_t)g * kCols + c0 + n * 16 + e % 16] =
-              st[e];
-      }
-      __syncwarp();
-    }
-  }
-}
-
-int launch_acc(const void* terms, const void* impact, const void* group_off,
-               const void* group_rows, int n_groups, const void* uids, int U,
-               const void* w, int B, void* out, int64_t ld_out, void* table,
-               int64_t table_len, void* scratch, int64_t scratch_len,
-               void* stream) {
-  if (U < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int Bp = round_up(B, 16), Up = round_up(U, kUAlign);
-  const int64_t n = (int64_t)Bp * Up;
-  if (scratch == nullptr || scratch_len < 2 * n * 2)
-    return (int)cudaErrorInvalidValue;
-  __nv_bfloat16* wq = (__nv_bfloat16*)scratch;
-  __nv_bfloat16* wp = wq + n;
-  int rc = pack_weights((const float*)w, 0, B, U, Bp, Up, wq, s);
-  if (rc == 0) rc = pack_weights((const float*)w, B, B, U, Bp, Up, wp, s);
-  if (rc != 0) return rc;
-  const bool smem_table = U <= uid_table::kSmemMaxU;
-  int bits = 0;
-  if (!smem_table) {
-    bits = uid_table::global_bits(U);
-    if (table == nullptr || table_len < (int64_t)2 << bits)
-      return (int)cudaErrorInvalidValue;
-    rc = uid_table::build_global((const int32_t*)uids, U, (int32_t*)table,
-                                 bits, s);
-    if (rc != 0) return rc;
-  }
-  // column tile: the widest of 64, 32, 16 whose split X and P for all of U
-  // fit the budget; U chunks of the largest multiple of 128 that fits
-  int nc = 64;
-  while (nc > 16 && 8 * Up * nc > kAccXBudget) nc /= 2;
-  int uc = kAccXBudget / (8 * nc) / kUAlign * kUAlign;
-  if (uc > Up) uc = Up;
-  const int bytes = AccLayout(uc, nc, smem_table).total;
-  auto kern = smem_table ? acc_kernel<true> : acc_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(n_groups * (kCols / nc), (B + kQB - 1) / kQB);
-  kern<<<grid, kThreads, bytes, s>>>(
-      (const int32_t*)terms, (const float*)impact, (const int64_t*)group_off,
-      (const int32_t*)group_rows, (const int32_t*)uids, U, wq, wp, Bp, Up, B,
-      (float*)out, ld_out, (const int32_t*)table, bits, nc, uc);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int mse_bm25_slots_udedup_wide_bf16(
@@ -509,14 +318,4 @@ extern "C" int mse_bm25_slots_udedup_wide_i8(
   return launch_wide<signed char>(terms, impact, group_off, group_rows,
                                   n_groups, uids, U, w, B, out, ld_out, table,
                                   table_len, scratch, scratch_len, stream);
-}
-
-extern "C" int mse_bm25_slots_udedup_acc(
-    const void* terms, const void* impact, const void* group_off,
-    const void* group_rows, int n_groups, const void* uids, int U,
-    const void* w, int B, void* out, int64_t ld_out, void* table,
-    int64_t table_len, void* scratch, int64_t scratch_len, void* stream) {
-  return launch_acc(terms, impact, group_off, group_rows, n_groups, uids, U, w,
-                    B, out, ld_out, table, table_len, scratch, scratch_len,
-                    stream);
 }

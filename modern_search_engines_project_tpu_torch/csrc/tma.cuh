@@ -1,10 +1,10 @@
 // Tensor Memory Accelerator and mbarrier helpers shared by the kernels that
 // stream device memory through a ring of shared-memory stages
-// (dense_stats.cu, bm25_slots.cu).
+// (dense_stats.cu, bm25_slots.cu, bm25_blocked.cu).
 //
 // A copy is one thread's cp.async.bulk.tensor of a box of a 2-d tensor map
-// into shared memory; it completes on an mbarrier that was told how many
-// bytes to expect.  The tensor map is encoded on the host with
+// (or cp.async.bulk of a contiguous range) into shared memory; it
+// completes on an mbarrier that was told how many bytes to expect.  The tensor map is encoded on the host with
 // cuTensorMapEncodeTiled, which lives in libcuda: it is found at run time
 // with cudaGetDriverEntryPoint, so the library links no libcuda and <cuda.h>
 // is included for its types only.
@@ -58,6 +58,18 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(map), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// One bulk copy of `bytes` contiguous bytes from device memory at `src`
+// into shared memory at `dst` (both 16-byte aligned, bytes a multiple of
+// 16); completion is counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

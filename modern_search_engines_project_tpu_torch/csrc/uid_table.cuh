@@ -1,6 +1,7 @@
 // Lookup of a posting's term id among a batch's DISTINCT query term ids
 // ("uids"), shared by the U-dedup kernels of bm25_slots.cu and
-// bm25_blocked.cu.
+// bm25_blocked.cu, with the bit filter that ends most lookups before a
+// probe.
 //
 // The TPU kernels recover per-query weights with a (B,U)@(U,cols) product
 // of a 0/1 match matrix.  The real uids are distinct, so a posting matches
@@ -116,6 +117,53 @@ inline int build_global(const int32_t* uids, int U, int32_t* table, int bits,
   build_global_kernel<<<(U + 255) / 256, 256, 0, stream>>>(uids, U, table,
                                                            table + n, bits);
   return (int)cudaGetLastError();
+}
+
+// ---- the membership filter in front of a table (kernels 1-3, 5 and 8) -----
+// Most postings match no query term.  A bit filter of the table's ids (one
+// bit an id under a multiplicative hash of its own) ends their lookup after
+// one shared-memory load, before any probe of the table; only a set bit
+// probes.  2^fbits bits for a table of 2^bits slots: 64 a slot (about 128
+// an id), at least 2^12 and at most 2^15 (4 KB).
+
+__host__ __device__ constexpr int filter_bits(int bits) {
+  return bits + 6 > 15 ? 15 : bits + 6 < 12 ? 12 : bits + 6;
+}
+
+// Bytes of the filter of a table of 2^bits slots.
+__host__ __device__ constexpr int filter_bytes(int bits) {
+  return 1 << (filter_bits(bits) - 3);
+}
+
+// The filter's bit of a term id.
+__device__ __forceinline__ uint32_t filter_bit(int32_t key, int fbits) {
+  return ((uint32_t)key * 0x85EBCA77u) >> (32 - fbits);
+}
+
+// Whether term id `key` may be in the table: false for pads (key < 0) and
+// for most ids that are not there.
+__device__ __forceinline__ bool filter_pass(const uint32_t* filter, int fbits,
+                                            int32_t key) {
+  const uint32_t b = filter_bit(key, fbits);
+  return key >= 0 && ((filter[b >> 5] >> (b & 31)) & 1u);
+}
+
+// Block-cooperative build of the filter (2^fbits bits in shared memory) of
+// the table whose 2^bits keys are `keys` (shared or device memory).  Every
+// thread of the block must call it; it starts and ends with a barrier.
+__device__ __forceinline__ void build_filter(uint32_t* filter, int fbits,
+                                             const int32_t* keys, int bits) {
+  for (int i = threadIdx.x; i < (1 << (fbits - 5)); i += blockDim.x)
+    filter[i] = 0u;
+  __syncthreads();
+  for (int i = threadIdx.x; i < (1 << bits); i += blockDim.x) {
+    const int32_t k = keys[i];
+    if (k != kEmpty) {
+      const uint32_t b = filter_bit(k, fbits);
+      atomicOr(filter + (b >> 5), 1u << (b & 31));
+    }
+  }
+  __syncthreads();
 }
 
 // ---- one query chunk's table (kernels 1 and 7) ----------------------------

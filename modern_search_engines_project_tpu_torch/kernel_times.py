@@ -1,5 +1,5 @@
-"""Device times of kernels 1-3 (slot BM25), 4 (dense stats) and 7 (blocked
-BM25) at the main path's shapes, on the 100k-doc synthetic index that
+"""Device times of kernels 1-3 and 5 (slot BM25), 4 (dense stats) and 7-8
+(blocked BM25) at the paths' shapes, on the 100k-doc synthetic index that
 ``chip_smoke.py`` builds, printed as one JSON line.
 
     python3 -m modern_search_engines_project_tpu_torch.kernel_times [--seed 0]
@@ -17,15 +17,22 @@ df-drawn queries of T = 8 term slots (``synthetic.sample_terms``).  Kernel
 1 on the slot index at B = 1, 16 and 64 df-drawn queries of T = 8, kernels
 2 and 3 at B = 16 / U = 128 and B = 64 / U = 256 (df-drawn, redrawn until
 the batch pads to that U) and B = 64 / U = 1024 (16 uniform terms a
-query); each slot kernel both back to back ("warm": the 33.8 MB of term
-ids stay in the 50 MB L2) and after a write of 128 MB that evicts L2
-("cold": the time of write and kernel less the write's).  Inputs come
-from ``--seed``.  Needs a CUDA device.
+query); kernel 5 ("acc", the legacy U-dedup default) at B = 16 / U = 128
+and B = 64 / U = 256; kernel 8 on the blocked index at B = 64 / U = 128
+from the 100 most frequent terms (the batch that passes the blocked
+U-dedup gate) and at the df-drawn B = 64.  Each BM25 kernel of these rows
+runs both back to back ("warm": the 33.8 MB of term ids stay in the 50 MB
+L2) and after a write of 128 MB that evicts L2 ("cold": the time of write
+and kernel less the write's), and the row carries a digest of the
+kernel's output bytes (``sha256``, 16 hex digits), so two checkouts timed
+on the same seed show whether a kernel's bits changed.  Inputs come from
+``--seed``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -73,6 +80,11 @@ def cold_ms(fn, reps, flush):
     return both - device_ms(flush, reps)
 
 
+def digest(t: torch.Tensor) -> str:
+    """First 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -86,6 +98,7 @@ def main(argv=None) -> int:
     from modern_search_engines_project_tpu_torch.models import HashingEncoder
     from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
         bm25_score_blocked,
+        bm25_score_blocked_udedup,
     )
     from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
         dedup_query_terms,
@@ -142,7 +155,8 @@ def main(argv=None) -> int:
 
     def timed(fn):
         return {"warm": device_ms(fn, args.reps),
-                "cold": cold_ms(fn, args.reps, flush)}
+                "cold": cold_ms(fn, args.reps, flush),
+                "digest": digest(fn())}
 
     for B in (1, 16, 64):
         tids, qtf = sample_terms(rng, dfs, B, 8)
@@ -159,10 +173,20 @@ def main(argv=None) -> int:
                 break
         u = torch.as_tensor(uids, device=dev)
         wt = torch.as_tensor(w, device=dev)
-        for variant in ("sublane", "i8"):
+        # kernel 5 ("acc") at the legacy default's shapes only
+        for variant in ("sublane", "i8") + (("acc",) if U <= 256 else ()):
             out.setdefault(f"bm25_slots_udedup_{variant}", {})[
                 f"B={B} U={U}"] = timed(
                 lambda v=variant: slots_udedup_keyed(st, *views, u, wt, v))
+    # kernel 8 on the blocked index: the B = 64 batch of the 100 most
+    # frequent terms (U = 128, the gate's batch) and a df-drawn one
+    for key, pool in (("B=64 U=128 shared", 100), ("B=64 df-drawn", None)):
+        tids, qtf = sample_terms(rng, dfs, 64, 8, pool=pool)
+        uids, w = dedup_query_terms(tids, qtf)
+        u = torch.as_tensor(uids, device=dev)
+        wt = torch.as_tensor(w, device=dev)
+        row = timed(lambda: bm25_score_blocked_udedup(blk, u, wt))
+        out.setdefault("bm25_blocked_udedup", {})[f"{key} (U={uids.size})"] = row
     print(json.dumps(out), flush=True)
     return 0
 

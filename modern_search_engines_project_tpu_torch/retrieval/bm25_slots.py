@@ -17,8 +17,9 @@ version beside its wrapper:
         a bf16 or int8 product with a 0/1 match tile on the tensor cores
         (``csrc/bm25_slots_mma.cu``);
       - "acc" <- ``_kernel_slots_udedup_acc``: impacts and presence
-        accumulated per distinct id, then ``w[:B] @ X`` (X split three ways
-        into bf16) and ``w[B:2B] @ P`` on the tensor cores (same file).
+        gathered per distinct id, then ``w[:B] @ X`` (X split three ways
+        into bf16) and ``w[B:2B] @ P`` on the tensor cores, behind the
+        streaming front of kernels 1-3 (``csrc/bm25_slots.cu``).
 
 A wrapper takes the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -79,7 +80,7 @@ UDEDUP_KERNELS = {
         cuda_lib.CudaKernel(
             "bm25_slots_udedup_acc",
             "mse_bm25_slots_udedup_acc",
-            _MMA_SOURCE,
+            "modern_search_engines_project_tpu_torch/csrc/bm25_slots.cu",
             "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:380",
         )
     ),
@@ -101,7 +102,8 @@ UDEDUP_KERNELS = {
     ),
 }
 # the variants whose launcher takes packed-weight scratch, and its bytes per
-# (padded query, padded id): wq (and wp for "acc"), bf16 or int8
+# (padded query, padded id): wq (and wp for "acc", in mma.sync fragment
+# order), bf16 or int8
 _MMA_WEIGHT_BYTES = {"acc": 4, "wide": 2, "wide_i8": 1}
 
 
@@ -301,9 +303,9 @@ def table_args(table):
 
 def weight_scratch_bytes(variant: str, B: int, U: int) -> int:
     """Bytes of the packed-weight scratch a tensor-core U-dedup kernel
-    (csrc/bm25_slots_mma.cu) takes: B padded to 16 and U to 128, bf16
-    ``w[:B]`` ("wide"), int8 ``w[:B]`` ("wide_i8"), or bf16 ``w[:B]`` and
-    ``w[B:2B]`` ("acc"); 0 for the lookup kernels."""
+    takes: B padded to 16 and U to 128, bf16 ``w[:B]`` ("wide"), int8
+    ``w[:B]`` ("wide_i8"), or bf16 ``w[:B]`` and ``w[B:2B]`` ("acc", which
+    needs U padded to 16 only); 0 for the lookup kernels."""
     per = _MMA_WEIGHT_BYTES.get(variant, 0)
     return per * (-(-B // 16) * 16) * (-(-U // 128) * 128)
 
@@ -317,8 +319,8 @@ def _check_stream(stream: SlotStream, dev) -> None:
 
 
 def _stream_args(stream: SlotStream):
-    """(group_order pointer, slot count) launcher arguments of kernels 1-3,
-    which stream the term ids in the deepest-first group order."""
+    """(group_order pointer, slot count) launcher arguments of kernels 1-3
+    and 5, which stream the term ids in the deepest-first group order."""
     return stream.group_order.data_ptr(), stream.terms.numel()
 
 
@@ -383,7 +385,10 @@ def slots_udedup_keyed(
         if variant in _MMA_WEIGHT_BYTES:  # kernels 5-6
             n = weight_scratch_bytes(variant, B, U)
             scratch = torch.empty(n, dtype=torch.uint8, device=dev)
-            args += [*table_args(table), scratch.data_ptr(), n]
+            args += table_args(table)
+            if variant == "acc":  # kernel 5 streams as kernels 1-3 do
+                args += _stream_args(stream)
+            args += [scratch.data_ptr(), n]
         else:  # kernels 2-3
             args += [*_stream_args(stream), *table_args(table)]
         UDEDUP_KERNELS[variant].launch(dev, *args)

@@ -575,6 +575,161 @@ def test_streaming_udedup_kernels_any_u(both_layouts, cuda, B, T, n_u):
     _streaming_case(both_layouts, cuda, tids, qtf, n_u, WIDE_TOL)
 
 
+# ---- kernels 5 and 8: streaming designs, any depth, any B and U ------------
+
+
+@pytest.fixture(scope="module")
+def edges(cuda):
+    """6 rows of 128 docs over a 3,000-term Zipf vocabulary in both layouts:
+    rows 1 and 4 hold no real posting; the other docs hold 0-200 postings
+    and doc 2 holds 2,500 (its run spans two of kernel 8's 2,048-posting
+    stages, its slot group is 2,500 rows deep); every posting of doc 3 has
+    impact 0, so a doc that matches scores exactly 0."""
+    rng = np.random.default_rng(9)
+    n_terms, n_docs = 3000, 768
+    p = 1.0 / np.arange(1, n_terms + 1) ** 0.8
+    p /= p.sum()
+    pairs = []
+    for d in range(n_docs):
+        if d // 128 in (1, 4):
+            continue
+        k = {2: 2500, 3: 60}.get(d, int(rng.integers(0, 201)))
+        pairs.append(rng.choice(n_terms, k, replace=False, p=p) * n_docs + d)
+    pairs = np.sort(np.concatenate(pairs))
+    terms, docs = pairs // n_docs, (pairs % n_docs).astype(np.int32)
+    indptr = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(np.bincount(terms, minlength=n_terms), out=indptr[1:])
+    impact = rng.gamma(2.0, 1.5, docs.size).astype(np.float32)
+    impact[::89] *= -1
+    impact[docs == 3] = 0.0
+    csr = (indptr, docs, impact, n_docs)
+    st, si, col_unperm = build_slot_postings(*csr)
+    vt, vi, stream = pack_slot_classes(st, si, cuda)
+    blk = pack_blocked(*build_blocked_postings(*csr), cuda)
+    assert blk.doc_off[[1, 4], -1].tolist() == [0, 0]
+    cu = torch.as_tensor(col_unperm, device=cuda)
+    doc3 = terms[docs == 3].astype(np.int32)
+    return (vt, vi, stream, cu), blk, n_terms, rng, doc3
+
+
+def _edge_queries(edges, B, T):
+    """B queries of T terms from the 300 most frequent (docs of 100-2,500
+    postings match many), query 0 holding a term of doc 3."""
+    _, _, _, rng, doc3 = edges
+    tids, qtf = _queries(rng, B, T, 300)
+    tids[0, 0], qtf[0, 0] = doc3[0], 1.0
+    return tids, qtf
+
+
+def _udedup_inputs(cuda, tids, qtf, perm_seed=None):
+    uids, w = dedup_query_terms(tids, qtf)
+    if perm_seed is not None:  # the kernels take the ids in any order
+        perm = np.random.default_rng(perm_seed).permutation(uids.size)
+        uids, w = uids[perm], np.ascontiguousarray(w[:, perm])
+    return torch.as_tensor(uids, device=cuda), torch.as_tensor(w, device=cuda)
+
+
+def _acc_case(layout, cuda, u, wt):
+    """Kernel 5 against its plain version (WIDE_TOL: its split product sums
+    in another order), keys equal, one launch."""
+    (vt, vi, stream, _), *_ = layout
+    before = UDEDUP_KERNELS["acc"].launches
+    got = slots_udedup_keyed(stream, vt, vi, u, wt, "acc")
+    torch.cuda.synchronize()
+    assert UDEDUP_KERNELS["acc"].launches == before + 1
+    want = slots_udedup_plain(vt, vi, u, wt, "acc")
+    torch.testing.assert_close(got, want, **WIDE_TOL)
+    assert torch.equal(got < 0, want < 0)
+    assert (want >= 0).any() and (want == -1).any()
+    return got, want
+
+
+def _blocked_udedup_case(layout, cuda, u, wt, tol):
+    """Kernel 8 against its plain version (keys equal, one launch) and, bit
+    for bit, against slot kernel 2 on the same (uids, w): both sum each
+    doc's matched products bf16(w) * impact in posting order, and presence
+    from the rows w[B:2B] is weight > 0 for these batches."""
+    (vt, vi, stream, cu), blk, *_ = layout
+    B = wt.shape[0] // 2
+    before = BLOCKED_UDEDUP_KERNEL.launches
+    got = bm25_score_blocked_udedup(blk, u, wt)
+    torch.cuda.synchronize()
+    assert BLOCKED_UDEDUP_KERNEL.launches == before + 1
+    want = blocked_udedup_plain(blk, u, wt)
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got < 0, want < 0)
+    slot = _slots_key(slots_udedup_keyed(stream, vt, vi, u, wt, "sublane"),
+                      cu, B)
+    assert torch.equal(got, slot)
+    assert (want >= 0).any() and (want == -1).any()
+    return got, want
+
+
+@pytest.mark.parametrize("B", [1, 7, 16, 17, 33, 64, 65, 128])
+def test_acc_kernel_any_depth_and_batch(deep, cuda, B):
+    """Kernel 5 on groups of 8-136 rows, 16 queries a block (B <= 16) or 64
+    (their A fragments in shared memory, or read from device memory at
+    U = 512), several query chunks past 64; the ids shuffled.  Deep columns
+    match up to ~100 ids, so the column lists are multiplied out several
+    times an item."""
+    _, _, n_terms, rng = deep
+    tids, qtf = _blocked_queries(rng, B, 8, n_terms)
+    _acc_case(deep, cuda, *_udedup_inputs(cuda, tids, qtf, B))
+
+
+@pytest.mark.parametrize("B,T,n_u", [(14, 76, 1024), (20, 54, 1024),
+                                     (16, 90, 1152), (17, 80, 1152),
+                                     (40, 80, 2048)])
+def test_acc_and_blocked_udedup_kernels_any_u(both_layouts, cuda, B, T, n_u):
+    """U = 1024 (the last shared-memory uid table; kernel 5's A fragments in
+    shared memory at B = 14, from device memory at B = 20; kernel 8's
+    weights in shared memory at 32 queries a block) and above (the
+    device-memory uid table; kernels 5 and 8 read their weights from device
+    memory) on the 12k-doc corpus."""
+    n_terms = both_layouts[2]
+    tids, qtf = _wide_queries(np.random.default_rng(11), B, T, n_terms)
+    u, wt = _udedup_inputs(cuda, tids, qtf, n_u)
+    assert u.numel() == n_u
+    _acc_case(both_layouts, cuda, u, wt)
+    _blocked_udedup_case(both_layouts, cuda, u, wt, WIDE_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 7, 32, 33, 64, 65, 128])
+def test_blocked_udedup_kernel_any_depth_and_batch(deep, cuda, B):
+    """Kernel 8 on docs of 0-136 postings, one lane a query (B <= 32) or two,
+    one query chunk of 64 or several, the ids shuffled."""
+    _, _, n_terms, rng = deep
+    tids, qtf = _blocked_queries(rng, B, 8, n_terms)
+    _blocked_udedup_case(deep, cuda, *_udedup_inputs(cuda, tids, qtf, B),
+                         WIDE_TOL)
+
+
+@pytest.mark.parametrize("B", [8, 16, 40, 64, 70])
+def test_blocked_udedup_equals_slot_kernel_2(both_layouts, cuda, B):
+    """Kernel 8 equals slot kernel 2 bit for bit in artifact doc order, on
+    df-like random batches of the 12k-doc corpus."""
+    _, _, n_terms, rng = both_layouts
+    tids, qtf = _queries(rng, B, 16, n_terms)
+    _blocked_udedup_case(both_layouts, cuda, *_udedup_inputs(cuda, tids, qtf),
+                         dict(atol=BM25_ATOL, rtol=0))
+
+
+@pytest.mark.parametrize("B", [1, 16, 33, 64, 128])
+def test_acc_and_blocked_udedup_kernels_edges(edges, cuda, B):
+    """Kernels 5 and 8 on blocked rows with no real posting, docs of up to
+    200 postings and one of 2,500 (a run across kernel 8's stages, a slot
+    item of 157 stages), and a matched doc whose score is 0: keyed 0, not
+    -1, in both."""
+    tids, qtf = _edge_queries(edges, B, 8)
+    u, wt = _udedup_inputs(cuda, tids, qtf)
+    got5, _ = _acc_case(edges, cuda, u, wt)
+    got8, want8 = _blocked_udedup_case(edges, cuda, u, wt, WIDE_TOL)
+    assert want8[0, 3] == 0 and got8[0, 3] == 0
+    assert (got8[:, 128:256] == -1).all() and (got8[:, 512:640] == -1).all()
+    cu = edges[0][3]
+    assert _slots_key(got5, cu, B)[0, 3] == 0
+
+
 def test_wrappers_refuse_wrong_inputs(slots, cuda):
     views_t, views_i, stream, n_terms, _ = slots
     tids = torch.zeros(2, 4, dtype=torch.int64, device=cuda)
