@@ -25,7 +25,9 @@ non-zero exit):
      1, kernel 8 against kernel 2 on the same ids and weights);
      the U-dedup kernels 2, 3, 5 ("acc") and 6 ("wide", "wide_i8") at
      B = 16 / U = 128, B = 64 / U = 256 and B = 64 / U = 512, kernel 6
-     also bit for bit against kernels 2 and 3;
+     also bit for bit against kernels 2 and 3, with the tensor-core work
+     its schedule implies (``wide_mma_count``, a host-side count) in the
+     log;
   5. end to end, each path in turn: SearchEngine.search_batch on batches
      of 1, 16 and 64 queries for the slot path and of 1, 64 sharing few
      terms and 64 with many for the blocked path (one per BM25 dispatch
@@ -36,7 +38,8 @@ non-zero exit):
      with no ``variant`` (the legacy default, kernel 5 once) at B = 16 and
      64, held against variant="sublane" and the numpy oracle, and the
      U-dedup A/B bench (``bench_kernels.gate_fit``: 8 (B, U) cells x 5
-     variants, each held against kernel 2, with the gate's agreement);
+     variants, each held against kernel 2, kernel 6 bit for bit, with the
+     gate's agreement);
      the slot results held against the port's own
      engine on the CPU and the numpy oracle, the blocked results against
      the slot engine and the numpy oracle; then queries/s, p50 latency and
@@ -95,6 +98,7 @@ from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
     stats_plain,
 )
 from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+    SLOT_COLS,
     build_blocked_postings,
     build_slot_postings,
     pack_blocked,
@@ -167,6 +171,40 @@ def cuda_ms(fn, reps, warmup=2):
 def bound(nbytes, ops, rate):
     t_b, t_o = nbytes / HBM_BPS, ops / rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def wide_mma_count(stream, uids, B: int, variant: str) -> int:
+    """``mma.sync`` instructions that kernel 6's schedule ("wide" or
+    "wide_i8") implies for B queries of distinct ids ``uids`` on the slot
+    stream ``stream``, each 2 x 16 x 8 x k operations: a host-side count
+    from the matches, not a device counter.  In every 16-row stage of a
+    group and tile of 8 columns, step j takes the j-th matched row of each
+    column and multiplies once for every k block of the ids (k = 16 in
+    bf16, 32 in int8) that one of those matches falls in, for each m16
+    tile of the queries: ceil(B / 16) over the query chunks."""
+    k = 32 if variant == "wide_i8" else 16
+    terms = stream.terms
+    real = torch.nonzero(uids >= 0).squeeze(1)
+    if real.numel() == 0:
+        return 0
+    ids, order = torch.sort(uids[real])
+    at = torch.searchsorted(ids, terms).clamp(max=ids.numel() - 1)
+    i = torch.nonzero(ids[at] == terms).squeeze(1)  # matched slots
+    u = real[order[at[i]]]  # their positions in uids
+    g = torch.searchsorted(stream.group_off, i, right=True) - 1
+    row = (i - stream.group_off[g]) // SLOT_COLS
+    col = g * SLOT_COLS + i % SLOT_COLS  # the column's output index
+    n_stages = int(stream.group_rows.max()) // 16 + 1
+    # (column, stage) segments in row order; j = a match's rank in its segment
+    seg, perm = torch.sort(col * n_stages + row // 16, stable=True)
+    first = torch.ones_like(seg, dtype=torch.bool)
+    first[1:] = seg[1:] != seg[:-1]
+    n = torch.arange(seg.numel(), device=seg.device)
+    j = n - torch.cummax(torch.where(first, n, 0), 0).values
+    tile_stage = (col // 8 * n_stages + row // 16)[perm]
+    kb = u[perm] // k
+    key = (tile_stage * 16 + j) * (-(-uids.numel() // k)) + kb
+    return int(torch.unique(key).numel()) * -(-B // 16)
 
 
 def check_kernels(eng, dfs, rng):
@@ -251,25 +289,34 @@ def check_kernels(eng, dfs, rng):
             nb += got.numel() * 4
             b_ms, b_by = bound(nb, n_real + matched * 2 * B, F32_OPS)
             Bp, Up = -(-B // 16) * 16, -(-u.numel() // 128) * 128
-            wide_ops = 2 * Bp * Up * st.terms.numel()  # one product a slot
-            tc_ops = {"acc": 8 * Bp * Up * st.n_cols,  # four a doc column
-                      "wide": wide_ops, "wide_i8": wide_ops}.get(variant)
-            # kernel 6's own formulation: its product over every slot on the
-            # tensor cores (bf16 or int8 peak), beside the byte bound
-            tc_ms = (tc_ops / (INT8_OPS if variant == "wide_i8" else BF16_OPS)
-                     * 1e3 if variant in ("wide", "wide_i8") else None)
+            extra = {}
+            log_ops = ""
+            if variant == "acc":  # four products a doc column
+                log_ops = (f"; tensor-core product "
+                           f"{8 * Bp * Up * st.n_cols:.3e} operations")
+            if variant in ("wide", "wide_i8"):
+                peak = INT8_OPS if variant == "wide_i8" else BF16_OPS
+                k = 32 if variant == "wide_i8" else 16
+                # the TPU formulation: its dense 0/1 match-tile product over
+                # every slot, (B, U) @ (U, 8 * COLS), at the same peak
+                extra["tpu_formulation_bound_ms"] = (
+                    2 * Bp * Up * st.terms.numel() / peak * 1e3)
+                # the products kernel 6's schedule implies (counted on the
+                # host, not measured): an m16n8k mma.sync per m16 tile of
+                # the queries for each (step, k block) holding a match
+                n_mma = wide_mma_count(st, u, B, variant)
+                log_ops = (f"; its schedule's tensor-core work {n_mma} "
+                           f"mma.sync, {n_mma * 2 * 16 * 8 * k:.3e} "
+                           f"operations (host count)")
             log(f"  {kern.name} B={B} U={u.numel()}: err {e:.2e} kernel "
                 f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
-                f"{matched} of {n_real} postings matched)"
-                + (f"; tensor-core product {tc_ops:.3e} operations"
-                   if tc_ops else ""))
+                f"{matched} of {n_real} postings matched){log_ops}")
             if by_df:
                 by_batch[f"B={B} U={u.numel()}"] = dict(
-                    ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, **extra)
             if B == main_b and by_df:
-                main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
-                if tc_ms is not None:
-                    main["formulation_bound_ms"] = tc_ms
+                main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                            **extra)
         rows[kern.name] = dict(main, max_abs_err=err, by_batch=by_batch)
 
     # kernel 4: every bucket, B in {1, 16, 64}
@@ -371,6 +418,9 @@ def bench_phase(eng, dfs):
     rows, gate, par = bench_kernels.gate_fit(eng.didx, dfs)
     counts = {k.name: k.launches for k in cuda_lib.KERNELS}
     n_ok = sum(c["agree"] for c in gate.values())
+    for cell, p in par.items():  # kernel 6's products are exact
+        check(p["wide"]["bit_identical"] and p["wide_i8"]["bit_identical"],
+              f"gate fit {cell}: kernel 6 not equal to kernel 2")
     check(len(gate) == 8 and all(
         all(isinstance(c[v], float) for v in ("plain", *bench_kernels.VARIANTS))
         for c in gate.values()), "gate fit: a cell is missing")
@@ -885,8 +935,8 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
-            **{key: r[key] for key in ("bound_old_ms", "formulation_bound_ms",
-                                       "by_batch")
+            **{key: r[key] for key in ("bound_old_ms",
+                                       "tpu_formulation_bound_ms", "by_batch")
                if key in r},
         })
     log(f"total {time.time() - t_start:.1f} s")

@@ -5,6 +5,8 @@
 //   mse_bm25_slots_udedup_bf16 <- _kernel_slots_udedup (:241), variant "sublane"
 //   mse_bm25_slots_udedup_i8   <- _kernel_slots_udedup_i8 (:289), variant "i8"
 //   mse_bm25_slots_udedup_acc  <- _kernel_slots_udedup_acc (:380), variant "acc"
+//   mse_bm25_slots_udedup_wide_bf16 <- _kernel_slots_udedup_wide (:327), "wide"
+//   mse_bm25_slots_udedup_wide_i8   <- the same with i8=True, "wide_i8"
 //
 // What they compute.  The doc-slot postings are groups of 512 doc columns;
 // column c of group g holds one document's postings stacked down its rows
@@ -36,7 +38,7 @@
 // memory round trip, over up to 128 rows, with one 4-byte load in flight a
 // thread (latency-bound, 7-14x the bound), and the U-dedup kernels read
 // and hashed every posting once per 8 queries.  Here one body serves all
-// three kernels (and kernel 5, below, with a fold of its own):
+// three kernels (and kernels 5-6, below, with folds of their own):
 //   * Work items.  An item is 128 columns of one group (a rectangle of the
 //     flat row-major stream, since every group starts at a multiple of 512
 //     elements).  Blocks of 512 threads are persistent, as many as fit on
@@ -127,6 +129,43 @@
 // A-fragment loads, mma.sync and the B fragments' making), the lookups
 // ~22%, the gathering ~15%.
 //
+// Kernel 6 ("wide", "wide_i8") computes the TPU kernel's function: a
+// posting row's weights mw = bf16(w[:B]) @ MU (f32 sums) or int8(w[:B]) @ MU
+// (s32 sums) with MU the row's 0/1 match matrix against the U ids, then,
+// per (query, column) in row order, score += mw * x and count += (mw > 0):
+// presence is derived from the weight, as on the TPU.  Its first design
+// built MU densely (16 columns a block, 8 rows a step, a 0/1 tile over all
+// U ids set, multiplied with WMMA and cleared at every step): 2 B U
+// tensor-core operations a slot, 95-145x the bound.  Now it shares the
+// streaming front above and multiplies only where there is work.  After a
+// stage's lookups, warp v takes the n8 tile of columns [8 v, 8 v + 8); at
+// step j the B fragment is the one-hot of the j-th match's u in each column
+// of the tile (zero where a column has fewer matches), made in registers,
+// and mma.sync (m16n8k16 bf16, or m16n8k32 s8) runs only over the k blocks
+// that a column's match falls in.  Each lane's C fragment then holds mw
+// for four fixed (query, column) pairs of every m16 tile of the block's
+// queries, and the lane folds them in registers.  Its A fragments, w[:B]
+// cast as the TPU kernel casts it and packed in fragment order by
+// pack_afrag_kernel, are staged in shared memory once a block where they
+// fit (at U <= 1024 always), else read from device memory.  A one-hot
+// column times a small-integer weight is exact in f32 and in s32, so mw is
+// the cast weight itself, and the fold is kernels 2-3's acc += m * x in
+// ascending row order: "wide" equals "sublane" and "wide_i8" equals "i8"
+// bit for bit.  Bound: bytes, as for kernels 2-3; the tensor-core work is
+// one mma.sync per m16 tile of the queries for each (step, k block) that
+// holds a match, far below the byte bound.
+//
+// What bounds kernel 6 now (kernel_times.py, NVIDIA H100 80GB HBM3,
+// 700 W): 0.046 ms at B = 16 / U = 128 and 0.082 ms at B = 64 / U = 256
+// in bf16 (0.83 / 2.67 ms before; 3.8x and 4.4x the bound), two blocks an
+// SM (48-64 registers, no spills; 74 KB / 106 KB of shared memory).
+// Per-phase clocks of a throwaway copy: the lookups take what they take in
+// kernels 2-3, and the products and fold add 0.7-1.6 as much again: a step
+// is one-hot words, a ballot and shuffle per k block, the A loads and
+// mma.sync, and the fold of 4 (query, column) pairs a lane and m16 tile,
+// whatever the number of the tile's columns that matched, and a warp takes
+// as many steps as its busiest column has matches.
+//
 // Any T and any U.  Kernel 1 builds its chunk's table (16 queries) in
 // shared memory up to kMaxT term slots a query; beyond, one small kernel
 // builds each chunk's table in device memory first.  Kernels 2-3 keep the
@@ -143,6 +182,8 @@
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tma.cuh"
 #include "uid_table.cuh"
@@ -271,21 +312,27 @@ __device__ __forceinline__ void store_words(void* p,
   }
 }
 
-// ---- kernel 5 ("acc"): the products on the tensor cores -------------------
+// ---- kernels 5 ("acc") and 6 ("wide"): the products on the tensor cores ----
 
 // How a block's walk ends in each stage: kernels 1-3 fold weights into
 // per-thread sums (kFold); kernel 5 gathers each column's matches and
-// multiplies them out with mma.sync, its A fragments staged in shared
-// memory (kAccShared) or read from device memory (kAccGlobal).
+// multiplies them out with mma.sync at the item's end (kAcc); kernel 6
+// multiplies each stage's matches with mma.sync and folds the products in
+// registers (kWide).  Kernels 5-6 read their A fragments from shared
+// memory (a_smem) or from device memory, through one generic pointer.
 constexpr int kFold = 0;
-constexpr int kAccShared = 1;
-constexpr int kAccGlobal = 2;
+constexpr int kAcc = 1;
+constexpr int kWide = 2;
 constexpr int kKc = 32;  // kernel 5: matches a column's list holds
 
-// bf16 pair (lo, hi) as one 32-bit word, lo in the low half.
-__device__ __forceinline__ uint32_t bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// The k depth of one mma.sync: 16 bf16 ids, or 32 int8 ids (kernel 6).
+template <typename W, int kProd>
+__host__ __device__ constexpr int k_block() {
+  return kProd == kWide && sizeof(W) == 1 ? 32 : 16;
+}
+// A-fragment operands: wq and wp (kernel 5), wq alone (kernel 6).
+__host__ __device__ constexpr int n_operands(int prod) {
+  return prod == kAcc ? 2 : 1;
 }
 
 // The TPU kernel's 3-way bf16 split of x (bm25_pallas.py:434-437):
@@ -308,28 +355,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-// Kernel 5's A operands in fragment order: for m16 tile mt of the padded
-// queries and k16 block kb of the ids, lane l's four words of the mma.sync
-// A fragment at afrag[(mt * KB + kb) * 32 + l] -- bf16(w[q, u]) for wq
-// (rows [0, B)), then, Mt * KB * 32 entries on, bf16(w[B + q, u]) for wp;
-// zero past B and U.  Word r of lane l holds (q, u) and (q, u + 1) with
-// q = mt * 16 + l / 4 + 8 (r & 1), u = kb * 16 + 2 (l % 4) + 8 (r >> 1).
+// d += a (16 x 32, row-major fragment) @ b (32 x 8, col-major fragment),
+// int8 in, s32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a,
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tile(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  mma_bf16(d, a, b0, b1);
+}
+__device__ __forceinline__ void mma_tile(int (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  mma_s8(d, a, b0, b1);
+}
+
+// The A operands of kernels 5-6 in fragment order: for m16 tile mt of the
+// padded queries and k block kb of the ids (K = 16 bf16 or 32 int8 ids),
+// lane l's four words of the mma.sync A fragment at
+// afrag[(mt * KB + kb) * 32 + l] -- W(w[q, u]) for wq (rows [0, B)), then,
+// for kernel 5, Mt * KB * 32 entries on, W(w[B + q, u]) for wp; zero past B
+// and U, W the TPU kernel's cast.  Word r of lane l holds the 4 / sizeof(W)
+// ids u, u + 1, ... of query q (the first in the low bits) with
+// q = mt * 16 + l / 4 + 8 (r & 1), u = kb * K + (K / 8) (l % 4) + (K / 2) (r >> 1).
+template <typename W>
 __global__ void pack_afrag_kernel(const float* __restrict__ w, int B, int U,
-                                  int KB, int Mt, uint32_t* __restrict__ dst) {
+                                  int KB, int Mt, int n_ops,
+                                  uint32_t* __restrict__ dst) {
+  constexpr int kPer = 4 / (int)sizeof(W);  // ids a word
+  constexpr int K = 8 * kPer;
   const int64_t per = (int64_t)Mt * KB * 128;  // words of one operand
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < 2 * per;
-       i += (int64_t)gridDim.x * blockDim.x) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_ops * per; i += (int64_t)gridDim.x * blockDim.x) {
     const int op = (int)(i / per);
     const int64_t j = i - op * per;
     const int r = (int)(j & 3), l = (int)((j >> 2) & 31);
     const int64_t tile = j >> 7;
     const int mt = (int)(tile / KB), kb = (int)(tile - (int64_t)mt * KB);
     const int q = mt * 16 + l / 4 + 8 * (r & 1);
-    const int u = kb * 16 + 2 * (l % 4) + 8 * (r >> 1);
+    const int u = kb * K + kPer * (l % 4) + (K / 2) * (r >> 1);
     const float* row = w + (int64_t)(op * B + q) * U;
-    const float v0 = q < B && u < U ? row[u] : 0.f;
-    const float v1 = q < B && u + 1 < U ? row[u + 1] : 0.f;
-    dst[i] = bf16x2(__float2bfloat16(v0), __float2bfloat16(v1));
+    uint32_t word = 0;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const float v = q < B && u + e < U ? row[u + e] : 0.f;
+      word |= bits_of(Weight<W>::from(v)) << (8 * (int)sizeof(W) * e);
+    }
+    dst[i] = word;
   }
 }
 
@@ -345,17 +420,18 @@ struct Cursor {
   int k, r0;
 };
 
-// One body for the four kernels.  kPlain: kernel 1 (qids = tids [B, n],
+// One body for the five kernels.  kPlain: kernel 1 (qids = tids [B, n],
 // qw = qtf [B, n], weights m from the chunk's query table, f32); otherwise
-// kernels 2-3 (qids = uids [n], qw = w [2B, n], weights of type W) or, kAcc,
-// kernel 5 (its A fragments at afrag, pack_afrag_kernel's layout).
-// kSmem: tables and weights in shared memory; otherwise g_table holds the
-// query tables of kernel 1 (chunk c at c * g_stride) or the uid table of
-// kernels 2-3 and 5, and kernels 2-3 read weights from w.  A block takes
-// query chunk blockIdx.x % n_chunks of kQGroups * QPT queries and walks
-// every item of the stream.
-template <typename W, int QPT, bool kPlain, bool kSmem, int kAcc = kFold>
-__global__ void __launch_bounds__(kThreads, kAcc != kFold && QPT == 16 ? 1 : 2)
+// kernels 2-3 (qids = uids [n], qw = w [2B, n], weights of type W) or,
+// kProd = kAcc / kWide, kernel 5 / 6 (A fragments at afrag in
+// pack_afrag_kernel's layout, of type W; staged in shared memory when
+// a_smem).  kSmem: tables and weights in shared memory; otherwise g_table
+// holds the query tables of kernel 1 (chunk c at c * g_stride) or the uid
+// table of kernels 2-3 and 5-6, and kernels 2-3 read weights from w.  A
+// block takes query chunk blockIdx.x % n_chunks of kQGroups * QPT queries
+// and walks every item of the stream.
+template <typename W, int QPT, bool kPlain, bool kSmem, int kProd = kFold>
+__global__ void __launch_bounds__(kThreads, kProd == kAcc && QPT == 16 ? 1 : 2)
 slots_kernel(
     const __grid_constant__ CUtensorMap terms, const float* __restrict__ impact,
     const int64_t* __restrict__ group_off,
@@ -363,7 +439,8 @@ slots_kernel(
     const int32_t* __restrict__ group_order, int n_items, int n_chunks,
     const int32_t* __restrict__ qids, const float* __restrict__ qw, int B,
     int n, int bits, const int32_t* __restrict__ g_table, int64_t g_stride,
-    float* __restrict__ out, int64_t ld_out, const uint4* __restrict__ afrag) {
+    float* __restrict__ out, int64_t ld_out, const uint4* __restrict__ afrag,
+    bool a_smem) {
   constexpr int kChunk = kQGroups * QPT;
   constexpr int kWords = QPT * (int)sizeof(W) / 4;
   // weight row stride: padded in shared memory, kChunk weights in device
@@ -391,14 +468,17 @@ slots_kernel(
   // kernels 2-3: bit i of s_pmask[u * kQGroups + qg]: query qg * QPT + i has
   // weight > 0 on id u (after the weights, 16-byte rows)
   uint32_t* s_pmask = reinterpret_cast<uint32_t*>(s_w + (size_t)n * kRow);
-  // kernel 5, after the filter and the table (kSmem): its A fragments
-  // (kAccShared; wq's tiles, then wp's), then each column's list of
-  // matches (count, ids u, impacts).  Every part starts 16-byte aligned.
-  const int KB = (n + 15) / 16;                // k16 blocks of the ids
+  // kernels 5-6, after the filter and the table (kSmem): their A fragments
+  // (a_smem; wq's tiles, then kernel 5's wp's), then kernel 5's list of
+  // matches for each column (count, ids u, impacts).  Every part starts
+  // 16-byte aligned.
+  constexpr int kK = k_block<W, kProd>();
+  constexpr int kOps = n_operands(kProd);
+  const int KB = (n + kK - 1) / kK;            // k blocks of the ids
   const int mt_alloc = (min(kChunk, B) + 15) / 16;  // m16 tiles a block holds
   uint4* s_a = reinterpret_cast<uint4*>(kSmem ? s_slots + (1 << bits) : s_keys);
   int* s_n = reinterpret_cast<int*>(
-      s_a + (kAcc == kAccShared ? 2 * mt_alloc * KB * 32 : 0));
+      s_a + (a_smem ? kOps * mt_alloc * KB * 32 : 0));
   int32_t* s_lu = s_n + kSliceCols;  // a match's id u and its impact
   float* s_lx = reinterpret_cast<float*>(s_lu + kSliceCols * kKc);
 
@@ -471,18 +551,17 @@ slots_kernel(
   }
 
   // The block's tables, while the first stages stream in.
-  if constexpr (kAcc != kFold) {
-    if constexpr (kAcc == kAccShared) {  // this block's m16 tiles of wq, wp
-      const int per = ((nq + 15) / 16) * KB * 32;
-      const int64_t src0 = (int64_t)(q0 / 16) * KB * 32;
-      const int64_t wp_at = (int64_t)((B + 15) / 16) * KB * 32;
-      for (int i = tid; i < 2 * per; i += kThreads) {
-        const int op = i >= per, j = i - op * per;
-        s_a[op * mt_alloc * KB * 32 + j] = afrag[op * wp_at + src0 + j];
-      }
+  if (kProd != kFold && a_smem) {  // this block's m16 tiles of wq (and wp)
+    const int per = ((nq + 15) / 16) * KB * 32;
+    const int64_t src0 = (int64_t)(q0 / 16) * KB * 32;
+    const int64_t wp_at = (int64_t)((B + 15) / 16) * KB * 32;
+    for (int i = tid; i < kOps * per; i += kThreads) {
+      const int op = i >= per, j = i - op * per;
+      s_a[op * mt_alloc * KB * 32 + j] = afrag[op * wp_at + src0 + j];
     }
-    for (int i = tid; i < kSliceCols; i += kThreads) s_n[i] = 0;
   }
+  if constexpr (kProd == kAcc)
+    for (int i = tid; i < kSliceCols; i += kThreads) s_n[i] = 0;
   const int32_t* keys;
   const int32_t* slots;
   const unsigned char* wrows;  // weight row u at wrows + u * kRow
@@ -491,7 +570,7 @@ slots_kernel(
       uid_table::build_query_table(s_tids, s_qtf, nq, n, bits, s_keys,
                                    s_slots, reinterpret_cast<float*>(s_w),
                                    kRow / 4, &s_count);  // ends with a barrier
-    } else if constexpr (kAcc == kFold) {
+    } else if constexpr (kProd == kFold) {
       // w[:B] transposed into [U][kChunk], cast as the TPU kernel casts it,
       // and the presence masks; the presence rows [B, 2B) are not read:
       // presence is weight > 0.  A thread converts the QPT weights of one
@@ -610,14 +689,9 @@ slots_kernel(
           if (((cu[e] & 7) >> 1) == t4) fn(e);
       }
     };
-    const uint4* aq;
-    const uint4* ap;
-    if constexpr (kAcc == kAccShared) {
-      aq = s_a, ap = s_a + mt_alloc * KB * 32;
-    } else {
-      aq = afrag + (int64_t)(q0 / 16) * KB * 32;
-      ap = aq + (int64_t)((B + 15) / 16) * KB * 32;
-    }
+    const uint4* aq = a_smem ? s_a : afrag + (int64_t)(q0 / 16) * KB * 32;
+    const uint4* ap =
+        aq + (a_smem ? (int64_t)mt_alloc : (int64_t)((B + 15) / 16)) * KB * 32;
     for (int kb0 = 0; kb0 < KB; kb0 += 32) {
       uint32_t mine = 0;  // k16 blocks (from kb0) of this lane's matches
       each([&](int e) {
@@ -651,12 +725,7 @@ slots_kernel(
         for (int m = 0; m < kMt; ++m) {
           if (m < n_mt) {
             const int64_t at = ((int64_t)m * KB + kb) * 32 + lane;
-            uint4 a_q, a_p;
-            if constexpr (kAcc == kAccShared) {
-              a_q = aq[at], a_p = ap[at];
-            } else {
-              a_q = __ldg(aq + at), a_p = __ldg(ap + at);
-            }
+            const uint4 a_q = aq[at], a_p = ap[at];
             mma_bf16(S1[m], a_q, x1a, x1b);
             mma_bf16(S2[m], a_q, x2a, x2b);
             mma_bf16(S3[m], a_q, x3a, x3b);
@@ -665,6 +734,113 @@ slots_kernel(
         }
       }
     }
+  };
+
+  // Kernel 6: warp v owns the n8 tile of columns [8 v, 8 v + 8) of the
+  // item; lane l keeps, for every m16 tile m of the block's queries, the
+  // sums of its four C-fragment pairs (query m * 16 + l / 4 + 8 (i >> 1),
+  // column 8 v + 2 (l % 4) + (i & 1) for element i) in wsum[m][i], and in
+  // bit 4 m + i of wpresent whether the pair matched with weight > 0.
+  using WAcc = typename std::conditional<sizeof(W) == 1, int, float>::type;
+  constexpr int kWm = kProd == kWide ? kMt : 1;
+  float wsum[kWm][4];
+  uint32_t wpresent = 0;
+#pragma unroll
+  for (int m = 0; m < kWm; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wsum[m][i] = 0.f;
+  // Fold stage f's matches: step j takes the j-th matched row of each
+  // column of the tile, in row order.  The B fragment (k = ids, n =
+  // columns) is the one-hot of each column's id u; lane l sets it for
+  // column 8 v + l / 4 where u falls on its k rows of the k block, and
+  // the warp multiplies once for each k block that some column's u falls
+  // in, so D[m] = W(w[q, u]) for each (query, column) pair, exactly.
+  // The A fragments' place is a compile-time flag of the stage body (two
+  // bodies, picked by a_smem), so each step reads them with ld.shared or
+  // ld.global.nc: a generic load on every step's way to mma.sync cost
+  // kernel 6 8% at B = 64 (kernel_times.py, NVIDIA H100 80GB HBM3, 700 W),
+  // while kernel 5's products, once an item, keep it.
+  auto wide_stage = [&](int f, auto shared) {
+    constexpr bool kS = decltype(shared)::value;
+    constexpr int kPer = 4 / (int)sizeof(W);  // ids a fragment word
+    constexpr uint32_t kOne = sizeof(W) == 1 ? 1u : 0x3f80u;  // s8 / bf16 1
+    const int lane = tid % 32, t4 = lane & 3;
+    const int cb = (tid / 32) * 8 + lane / 4;  // this lane's B column
+    const int32_t* tf = ring + (f % kStages) * kTile + cb;
+    const float* xf = ximp + (f % kImpBufs) * kTile + cb;
+    uint32_t rows = s_mask[f % kMaskBufs][cb];
+    const uint4* a = kS ? s_a : afrag + (int64_t)(q0 / 16) * KB * 32;
+    while (__any_sync(0xffffffffu, rows)) {
+      // the next matched row of column cb: its id u and impact x (none: -1, 0)
+      int kb_own = -1;
+      uint32_t b = 0u;  // this lane's one-hot word of the B fragment
+      bool upper = false;  // ... in b1 (k rows of the upper half), else b0
+      float x = 0.f;
+      if (rows) {
+        const int r = __ffs(rows) - 1;
+        rows &= rows - 1;
+        const uint32_t u = (uint32_t)tf[r * kSliceCols];
+        x = xf[r * kSliceCols];
+        kb_own = (int)(u / kK);
+        const uint32_t kk = u % kK;
+        upper = kk >= kK / 2;
+        if ((kk % (kK / 2)) / kPer == (uint32_t)t4)
+          b = kOne << (32 / kPer * (kk % kPer));
+      }
+      // the impacts of the C fragment's columns 8 v + 2 (lane % 4) + {0, 1}
+      const float x0 = __shfl_sync(0xffffffffu, x, 8 * t4);
+      const float x1 = __shfl_sync(0xffffffffu, x, 8 * t4 + 4);
+      WAcc d[kWm][4];
+#pragma unroll
+      for (int m = 0; m < kWm; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[m][i] = 0;
+      bool pending = kb_own >= 0;
+      uint32_t live;
+      while ((live = __ballot_sync(0xffffffffu, pending))) {
+        const int kb = __shfl_sync(0xffffffffu, kb_own, __ffs(live) - 1);
+        const uint32_t bw = pending && kb_own == kb ? b : 0u;
+        pending &= kb_own != kb;
+#pragma unroll
+        for (int m = 0; m < kWm; ++m) {
+          if (m < n_mt) {
+            const int64_t at = ((int64_t)m * KB + kb) * 32 + lane;
+            mma_tile(d[m], kS ? a[at] : __ldg(a + at), upper ? 0u : bw,
+                     upper ? bw : 0u);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kWm; ++m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float mw = (float)d[m][i];
+          wsum[m][i] += mw * ((i & 1) ? x1 : x0);
+          wpresent |= (mw > 0.f ? 1u : 0u) << (4 * m + i);
+        }
+      }
+    }
+  };
+  // Kernel 6 at the item's end: keyed on presence and score >= 0, the
+  // lane's two columns of a row in one 8-byte store.
+  auto wide_out = [&](const Item& it) {
+    const int lane = tid % 32;
+    float* o = out + (int64_t)(q0 + lane / 4) * ld_out + (int64_t)it.g * kCols +
+               it.col0 + (tid / 32) * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int m = 0; m < kWm; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // query m * 16 + lane / 4 + 8 h
+        const int i = 2 * h;
+        if (m * 16 + lane / 4 + 8 * h < nq)
+          *reinterpret_cast<float2*>(o + (int64_t)(m * 16 + 8 * h) * ld_out) =
+              make_float2(keyed(wsum[m][i], (wpresent >> (4 * m + i)) & 1u),
+                          keyed(wsum[m][i + 1],
+                                (wpresent >> (4 * m + i + 1)) & 1u));
+        wsum[m][i] = wsum[m][i + 1] = 0.f;
+      }
+    }
+    wpresent = 0;
   };
 
   Cursor look{0, 0}, fold{0, 0};  // the stage being looked up / folded
@@ -732,7 +908,7 @@ slots_kernel(
     const int f = j - kLag;
     const int32_t* t = ring + (f % kStages) * kTile + col;
     const float* xs = ximp + (f % kImpBufs) * kTile + col;
-    if constexpr (kAcc != kFold) {
+    if constexpr (kProd == kAcc) {
       // Kernel 5: append the stage's matches (u, impact) to their column's
       // list (query group qg takes rows qg, qg + 4, ...; the order within a
       // list does not matter, a column holding each id at most once);
@@ -771,6 +947,16 @@ slots_kernel(
         __syncthreads();  // every list read
         if (qg == 0) s_n[col] = 0;
       }
+      advance(fold);
+      if (!valid(fold)) break;
+      continue;
+    }
+    if constexpr (kProd == kWide) {
+      if (a_smem)
+        wide_stage(f, std::true_type{});
+      else
+        wide_stage(f, std::false_type{});
+      if (fold.r0 + kStageRows >= s_items[fold.k].rows) wide_out(s_items[fold.k]);
       advance(fold);
       if (!valid(fold)) break;
       continue;
@@ -841,11 +1027,11 @@ int encode_stream(CUtensorMap* map, const void* terms, int64_t n_slots) {
 // Launch one instantiation: as many persistent blocks as fit on the card
 // at once (occupancy at launch), G for each query chunk, G at most the
 // number of items.
-template <typename W, int QPT, bool kPlain, bool kSmem, int kAcc = kFold>
+template <typename W, int QPT, bool kPlain, bool kSmem, int kProd = kFold>
 int run(const CUtensorMap& map, const Args& a, int bits,
         const int32_t* g_table, int64_t g_stride, size_t smem,
-        cudaStream_t s, const uint4* afrag = nullptr) {
-  auto kern = slots_kernel<W, QPT, kPlain, kSmem, kAcc>;
+        cudaStream_t s, const uint4* afrag = nullptr, bool a_smem = false) {
+  auto kern = slots_kernel<W, QPT, kPlain, kSmem, kProd>;
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -869,7 +1055,7 @@ int run(const CUtensorMap& map, const Args& a, int bits,
   kern<<<G * n_chunks, kThreads, smem, s>>>(
       map, a.impact, a.group_off, a.group_rows, a.group_order, n_items,
       n_chunks, a.qids, a.qw, a.B, a.n, bits, g_table, g_stride, a.out,
-      a.ld_out, afrag);
+      a.ld_out, afrag, a_smem);
   return (int)cudaGetLastError();
 }
 
@@ -913,63 +1099,65 @@ int launch_udedup(const void* terms, const Args& a, int64_t n_slots,
               : run<W, 4, false, false>(map, a, bits, t, 0, stream_smem(bits), s);
 }
 
-// Kernel 5.  scratch: its A fragments (pack_afrag_kernel), 2 * 2 *
-// round_up(B, 16) * round_up(U, 16) bytes; table as for kernels 2-3.  A
-// block takes 64 queries (16 at B <= 16) with their A fragments in shared
-// memory when they fit there, else it reads them from device memory.
-int launch_acc(const void* terms, const Args& a, int64_t n_slots, void* table,
+// Kernels 5 (kProd = kAcc, W = bf16) and 6 (kWide, W = bf16 or int8).
+// scratch: their A fragments (pack_afrag_kernel), n_operands * 512 *
+// ceil(B / 16) * ceil(U / K) bytes (bm25_slots.weight_scratch_bytes);
+// table as for kernels 2-3.  A block takes 64 queries (16 at B <= 16), its
+// A fragments in shared memory where they fit there, else read from device
+// memory.
+template <typename W, int kProd>
+int launch_mma(const void* terms, const Args& a, int64_t n_slots, void* table,
                int64_t table_len, void* scratch, int64_t scratch_len,
                cudaStream_t s) {
   const int U = a.n, B = a.B;
   if (B < 1 || U < 1 || a.n_groups < 1 || (int64_t)a.n_groups > INT_MAX / kSlices)
     return (int)cudaErrorInvalidValue;
-  const int KB = (U + 15) / 16, Mt = (B + 15) / 16;
-  if (scratch == nullptr || scratch_len < (int64_t)Mt * KB * 1024)
+  constexpr int kK = k_block<W, kProd>(), kOps = n_operands(kProd);
+  const int KB = (U + kK - 1) / kK, Mt = (B + 15) / 16;
+  if (scratch == nullptr || scratch_len < (int64_t)kOps * Mt * KB * 512)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   int rc = encode_stream(&map, terms, n_slots);
   if (rc != 0) return rc;
-  const int64_t words = (int64_t)Mt * KB * 256;
+  const int64_t words = (int64_t)kOps * Mt * KB * 128;
   const int grid = (int)((words + 255) / 256 < 4096 ? (words + 255) / 256 : 4096);
-  pack_afrag_kernel<<<grid, 256, 0, s>>>(a.qw, B, U, KB, Mt, (uint32_t*)scratch);
+  pack_afrag_kernel<W><<<grid, 256, 0, s>>>(a.qw, B, U, KB, Mt, kOps,
+                                            (uint32_t*)scratch);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const uint4* af = (const uint4*)scratch;
-  const bool wide = B > 16;  // 64 queries a block, else 16
-  // the stream and the filter, the table, the A fragments, the lists
-  auto smem = [&](int bits, bool table, int chunk, bool frags) {
-    const int mt = ((B < chunk ? B : chunk) + 15) / 16;
-    return stream_smem(bits) + (table ? (size_t)8 << bits : 0) +
-           (frags ? (size_t)mt * KB * 1024 : 0) + (size_t)kSliceCols * 4 +
-           (size_t)kSliceCols * kKc * 8;
-  };
-  if (U <= kMaxU) {
-    const int bits = uid_table::table_bits(U);
-    int dev = 0, max_smem = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (!wide)  // 16 queries' fragments fit at every U <= kMaxU (183 KB)
-      return run<__nv_bfloat16, 4, false, true, kAccShared>(
-          map, a, bits, nullptr, 0, smem(bits, true, 16, true), s, af);
-    if (smem(bits, true, 64, true) <= (size_t)max_smem)
-      return run<__nv_bfloat16, 16, false, true, kAccShared>(
-          map, a, bits, nullptr, 0, smem(bits, true, 64, true), s, af);
-    return run<__nv_bfloat16, 16, false, true, kAccGlobal>(
-        map, a, bits, nullptr, 0, smem(bits, true, 64, false), s, af);
+  int dev = 0, max_smem = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool smem_table = U <= kMaxU;
+  const int bits = smem_table ? uid_table::table_bits(U) : uid_table::global_bits(U);
+  const int32_t* t = nullptr;
+  if (!smem_table) {
+    if (table == nullptr || table_len < (int64_t)2 << bits)
+      return (int)cudaErrorInvalidValue;
+    rc = uid_table::build_global(a.qids, U, (int32_t*)table, bits, s);
+    if (rc != 0) return rc;
+    t = (const int32_t*)table;
   }
-  const int bits = uid_table::global_bits(U);
-  if (table == nullptr || table_len < (int64_t)2 << bits)
-    return (int)cudaErrorInvalidValue;
-  rc = uid_table::build_global(a.qids, U, (int32_t*)table, bits, s);
-  if (rc != 0) return rc;
-  const int32_t* t = (const int32_t*)table;
-  return wide ? run<__nv_bfloat16, 16, false, false, kAccGlobal>(
-                    map, a, bits, t, 0, smem(bits, false, 64, false), s, af)
-              : run<__nv_bfloat16, 4, false, false, kAccGlobal>(
-                    map, a, bits, t, 0, smem(bits, false, 16, false), s, af);
+  // the stream and the filter, the table, the A fragments, kernel 5's lists
+  const bool wide = B > 16;  // 64 queries a block, else 16
+  const int mt = ((B < 64 ? B : 64) + 15) / 16;  // m16 tiles a block holds
+  auto smem = [&](bool frags) {
+    return stream_smem(bits) + (smem_table ? (size_t)8 << bits : 0) +
+           (frags ? (size_t)kOps * (wide ? mt : 1) * KB * 512 : 0) +
+           (kProd == kAcc ? (size_t)kSliceCols * 4 + (size_t)kSliceCols * kKc * 8
+                          : 0);
+  };
+  const bool frags = smem(true) <= (size_t)max_smem;
+  const size_t bytes = smem(frags);
+  if (smem_table)
+    return wide ? run<W, 16, false, true, kProd>(map, a, bits, t, 0, bytes, s, af, frags)
+                : run<W, 4, false, true, kProd>(map, a, bits, t, 0, bytes, s, af, frags);
+  return wide ? run<W, 16, false, false, kProd>(map, a, bits, t, 0, bytes, s, af, frags)
+              : run<W, 4, false, false, kProd>(map, a, bits, t, 0, bytes, s, af, frags);
 }
 
 Args make_args(const void* impact, const void* group_off,
@@ -1060,7 +1248,34 @@ extern "C" int mse_bm25_slots_udedup_acc(
     const void* w, int B, void* out, int64_t ld_out, void* table,
     int64_t table_len, const void* group_order, int64_t n_slots,
     void* scratch, int64_t scratch_len, void* stream) {
-  return launch_acc(
+  return launch_mma<__nv_bfloat16, kAcc>(
+      terms,
+      make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
+                B, U, out, ld_out),
+      n_slots, table, table_len, scratch, scratch_len, (cudaStream_t)stream);
+}
+
+// Kernel 6 ("wide", "wide_i8").  table, scratch: as for kernel 5.
+extern "C" int mse_bm25_slots_udedup_wide_bf16(
+    const void* terms, const void* impact, const void* group_off,
+    const void* group_rows, int n_groups, const void* uids, int U,
+    const void* w, int B, void* out, int64_t ld_out, void* table,
+    int64_t table_len, const void* group_order, int64_t n_slots,
+    void* scratch, int64_t scratch_len, void* stream) {
+  return launch_mma<__nv_bfloat16, kWide>(
+      terms,
+      make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
+                B, U, out, ld_out),
+      n_slots, table, table_len, scratch, scratch_len, (cudaStream_t)stream);
+}
+
+extern "C" int mse_bm25_slots_udedup_wide_i8(
+    const void* terms, const void* impact, const void* group_off,
+    const void* group_rows, int n_groups, const void* uids, int U,
+    const void* w, int B, void* out, int64_t ld_out, void* table,
+    int64_t table_len, const void* group_order, int64_t n_slots,
+    void* scratch, int64_t scratch_len, void* stream) {
+  return launch_mma<int8_t, kWide>(
       terms,
       make_args(impact, group_off, group_rows, group_order, n_groups, uids, w,
                 B, U, out, ld_out),

@@ -1,4 +1,4 @@
-"""Device times of kernels 1-3 and 5 (slot BM25), 4 (dense stats) and 7-8
+"""Device times of kernels 1-3, 5 and 6 (slot BM25), 4 (dense stats) and 7-8
 (blocked BM25) at the paths' shapes, on the 100k-doc synthetic index that
 ``chip_smoke.py`` builds, printed as one JSON line.
 
@@ -17,8 +17,9 @@ df-drawn queries of T = 8 term slots (``synthetic.sample_terms``).  Kernel
 1 on the slot index at B = 1, 16 and 64 df-drawn queries of T = 8, kernels
 2 and 3 at B = 16 / U = 128 and B = 64 / U = 256 (df-drawn, redrawn until
 the batch pads to that U) and B = 64 / U = 1024 (16 uniform terms a
-query); kernel 5 ("acc", the legacy U-dedup default) at B = 16 / U = 128
-and B = 64 / U = 256; kernel 8 on the blocked index at B = 64 / U = 128
+query); kernels 5 ("acc", the legacy U-dedup default) and 6 ("wide",
+"wide_i8") at B = 16 / U = 128 and B = 64 / U = 256, on the batches of
+kernels 2-3; kernel 8 on the blocked index at B = 64 / U = 128
 from the 100 most frequent terms (the batch that passes the blocked
 U-dedup gate) and at the df-drawn B = 64.  Each BM25 kernel of these rows
 runs both back to back ("warm": the 33.8 MB of term ids stay in the 50 MB
@@ -173,8 +174,9 @@ def main(argv=None) -> int:
                 break
         u = torch.as_tensor(uids, device=dev)
         wt = torch.as_tensor(w, device=dev)
-        # kernel 5 ("acc") at the legacy default's shapes only
-        for variant in ("sublane", "i8") + (("acc",) if U <= 256 else ()):
+        # kernels 5-6 at the legacy default's shapes only
+        for variant in ("sublane", "i8") + (
+                ("acc", "wide", "wide_i8") if U <= 256 else ()):
             out.setdefault(f"bm25_slots_udedup_{variant}", {})[
                 f"B={B} U={U}"] = timed(
                 lambda v=variant: slots_udedup_keyed(st, *views, u, wt, v))

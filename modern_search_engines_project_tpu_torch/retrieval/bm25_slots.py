@@ -14,12 +14,15 @@ version beside its wrapper:
         ``_kernel_slots_udedup_i8``: a lookup of the matched id
         (``csrc/bm25_slots.cu``);
       - "wide", "wide_i8" <- ``_kernel_slots_udedup_wide``: the weights as
-        a bf16 or int8 product with a 0/1 match tile on the tensor cores
-        (``csrc/bm25_slots_mma.cu``);
+        a bf16 or int8 product on the tensor cores of ``w[:B]`` with the
+        one-hot ids of each stage's matched postings, folded in row order
+        (``csrc/bm25_slots.cu``);
       - "acc" <- ``_kernel_slots_udedup_acc``: impacts and presence
         gathered per distinct id, then ``w[:B] @ X`` (X split three ways
-        into bf16) and ``w[B:2B] @ P`` on the tensor cores, behind the
-        streaming front of kernels 1-3 (``csrc/bm25_slots.cu``).
+        into bf16) and ``w[B:2B] @ P`` on the tensor cores
+        (``csrc/bm25_slots.cu``).
+
+Kernels 2-3 and 5-6 share the streaming front of kernel 1.
 
 A wrapper takes the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -58,7 +61,6 @@ SLOTS_KERNEL = cuda_lib.register(
         "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:190",
     )
 )
-_MMA_SOURCE = "modern_search_engines_project_tpu_torch/csrc/bm25_slots_mma.cu"
 UDEDUP_KERNELS = {
     "sublane": cuda_lib.register(
         cuda_lib.CudaKernel(
@@ -88,7 +90,7 @@ UDEDUP_KERNELS = {
         cuda_lib.CudaKernel(
             "bm25_slots_udedup_wide",
             "mse_bm25_slots_udedup_wide_bf16",
-            _MMA_SOURCE,
+            "modern_search_engines_project_tpu_torch/csrc/bm25_slots.cu",
             "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:327",
         )
     ),
@@ -96,15 +98,14 @@ UDEDUP_KERNELS = {
         cuda_lib.CudaKernel(
             "bm25_slots_udedup_wide_i8",
             "mse_bm25_slots_udedup_wide_i8",
-            _MMA_SOURCE,
+            "modern_search_engines_project_tpu_torch/csrc/bm25_slots.cu",
             "modern_search_engines_project_tpu/retrieval/bm25_pallas.py:327",
         )
     ),
 }
-# the variants whose launcher takes packed-weight scratch, and its bytes per
-# (padded query, padded id): wq (and wp for "acc", in mma.sync fragment
-# order), bf16 or int8
-_MMA_WEIGHT_BYTES = {"acc": 4, "wide": 2, "wide_i8": 1}
+# the tensor-core variants: the weight operands their A fragments hold
+# (wq, and wp for "acc") and the ids of one k block (16 bf16, 32 int8)
+_MMA_OPERANDS = {"acc": (2, 16), "wide": (1, 16), "wide_i8": (1, 32)}
 
 
 # ---- host-side dispatch and query prep -------------------------------------
@@ -302,12 +303,15 @@ def table_args(table):
 
 
 def weight_scratch_bytes(variant: str, B: int, U: int) -> int:
-    """Bytes of the packed-weight scratch a tensor-core U-dedup kernel
-    takes: B padded to 16 and U to 128, bf16 ``w[:B]`` ("wide"), int8
-    ``w[:B]`` ("wide_i8"), or bf16 ``w[:B]`` and ``w[B:2B]`` ("acc", which
-    needs U padded to 16 only); 0 for the lookup kernels."""
-    per = _MMA_WEIGHT_BYTES.get(variant, 0)
-    return per * (-(-B // 16) * 16) * (-(-U // 128) * 128)
+    """Bytes of the A fragments a tensor-core U-dedup kernel packs
+    (csrc/bm25_slots.cu ``pack_afrag_kernel``): 512 for each m16 tile of
+    the queries and k block of the ids (16 ids in bf16, 32 in int8), of
+    bf16 ``w[:B]`` ("wide"), int8 ``w[:B]`` ("wide_i8"), or bf16 ``w[:B]``
+    and ``w[B:2B]`` ("acc"); 0 for the lookup kernels."""
+    if variant not in _MMA_OPERANDS:
+        return 0
+    ops, k = _MMA_OPERANDS[variant]
+    return ops * 512 * -(-B // 16) * -(-U // k)
 
 
 def _check_stream(stream: SlotStream, dev) -> None:
@@ -320,7 +324,7 @@ def _check_stream(stream: SlotStream, dev) -> None:
 
 def _stream_args(stream: SlotStream):
     """(group_order pointer, slot count) launcher arguments of kernels 1-3
-    and 5, which stream the term ids in the deepest-first group order."""
+    and 5-6, which stream the term ids in the deepest-first group order."""
     return stream.group_order.data_ptr(), stream.terms.numel()
 
 
@@ -382,13 +386,11 @@ def slots_udedup_keyed(
             stream.n_groups, uids.data_ptr(), U, w.data_ptr(), B,
             out.data_ptr(), stream.n_cols,
         ]
-        if variant in _MMA_WEIGHT_BYTES:  # kernels 5-6
+        if variant in _MMA_OPERANDS:  # kernels 5-6
             n = weight_scratch_bytes(variant, B, U)
             scratch = torch.empty(n, dtype=torch.uint8, device=dev)
-            args += table_args(table)
-            if variant == "acc":  # kernel 5 streams as kernels 1-3 do
-                args += _stream_args(stream)
-            args += [scratch.data_ptr(), n]
+            args += [*table_args(table), *_stream_args(stream),
+                     scratch.data_ptr(), n]
         else:  # kernels 2-3
             args += [*_stream_args(stream), *table_args(table)]
         UDEDUP_KERNELS[variant].launch(dev, *args)

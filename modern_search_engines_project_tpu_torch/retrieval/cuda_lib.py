@@ -50,17 +50,14 @@ SIGNATURES = {
         ]
         for sym in ("mse_bm25_slots_udedup_bf16", "mse_bm25_slots_udedup_i8")
     },
-    "mse_bm25_slots_udedup_acc": [
-        _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
-        _I64, _P, _I64, _P,
-    ],
     **{
         sym: [
             _P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _P, _I64, _P, _I64, _P,
-            _I64, _P,
+            _I64, _P, _I64, _P,
         ]
         for sym in (
-            "mse_bm25_slots_udedup_wide_bf16", "mse_bm25_slots_udedup_wide_i8",
+            "mse_bm25_slots_udedup_acc", "mse_bm25_slots_udedup_wide_bf16",
+            "mse_bm25_slots_udedup_wide_i8",
         )
     },
     "mse_bm25_blocked": [

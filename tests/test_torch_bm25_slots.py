@@ -313,9 +313,8 @@ def test_slots_table_words(B, T, words):
 
 def test_slot_wrappers_pass_stream_order_and_tables(built, monkeypatch):
     """Kernels 1-3 get the deepest-first group order and the slot count
-    after ``ld_out``, kernel 5 after its uid table; kernel 1 gets
-    query-table scratch above 64 term slots a query; kernel 6 takes
-    neither."""
+    after ``ld_out``, kernels 5-6 after their uid table; kernel 1 gets
+    query-table scratch above 64 term slots a query."""
     _, _, pi = built
     stream = dataclasses.replace(
         pi.slot_stream,
@@ -339,8 +338,6 @@ def test_slot_wrappers_pass_stream_order_and_tables(built, monkeypatch):
         if variant in ("sublane", "i8"):
             assert args[11:13] == (stream.group_order.data_ptr(), n_slots)
             assert len(args) == 15
-        elif variant == "acc":
+        else:  # "acc", "wide", "wide_i8"
             assert args[12] == 2 * 4096 and len(args) == 17
             assert args[13:15] == (stream.group_order.data_ptr(), n_slots)
-        else:
-            assert args[12] == 2 * 4096 and len(args) == 15

@@ -166,8 +166,10 @@ def test_legacy_default_hybrid_rank_matches_reference(built, acc):
 
 def test_mma_wrappers_pass_any_u(built, monkeypatch):
     """Kernels 5 and 6 take U = 1152: above 1024 a device-memory uid table
-    of 2 * 4096 int32, and always packed-weight scratch of B padded to 16
-    by U padded to 128 (bf16 for "wide", int8 for "wide_i8", bf16 rows
+    of 2 * 4096 int32, the stream's group order and slot count as kernels
+    1-3 take them, and always A-fragment scratch of 512 bytes for each m16
+    tile of the queries and k block of the ids (bf16 k16 blocks of w[:B]
+    for "wide", int8 k32 blocks for "wide_i8", bf16 k16 blocks of rows
     [0, B) and [B, 2B) for "acc")."""
     _, _, pi = built
     stream = dataclasses.replace(
@@ -188,12 +190,72 @@ def test_mma_wrappers_pass_any_u(built, monkeypatch):
         assert name == port.UDEDUP_KERNELS[variant].name
         assert args[6] == 1152 and args[8] == 17
         assert args[12] == 2 * 4096  # the uid table
+        assert args[13:15] == port._stream_args(stream)
+        assert len(args) == 17
         assert args[-1] == per[variant] * 32 * 1152
         assert args[-1] == port.weight_scratch_bytes(variant, 17, 1152)
     small_u, small_w = port.dedup_query_terms(tids[:1, :8], qtf[:1, :8])
-    port.slots_udedup_keyed(stream, *views, meta(small_u), meta(small_w), "acc")
-    args = rec.calls[-1][1]
-    assert args[11:13] == (0, 0) and args[-1] == 4 * 16 * 128
+    assert small_u.size == 128
+    for variant, n in (("acc", 4 * 16 * 128), ("wide", 2 * 16 * 128),
+                       ("wide_i8", 16 * 128)):
+        port.slots_udedup_keyed(stream, *views, meta(small_u), meta(small_w),
+                                variant)
+        args = rec.calls[-1][1]
+        assert args[11:13] == (0, 0) and args[-1] == n
+
+
+def _wide_mma_loop(stream, uids, B, k):
+    """Kernel 6's schedule written out: every 16-row stage of every group,
+    every tile of 8 columns, step j over the j-th matches of its columns,
+    one mma.sync a distinct k block of those matches and m16 tile."""
+    terms = stream.terms.numpy()
+    pos = {int(t): u for u, t in enumerate(uids.tolist()) if t >= 0}
+    n = 0
+    for off, rows in zip(stream.group_off.tolist(), stream.group_rows.tolist()):
+        grid = terms[off:off + rows * port.SLOT_COLS].reshape(rows, -1)
+        for r0 in range(0, rows, 16):
+            for c0 in range(0, port.SLOT_COLS, 8):
+                lists = [[pos[t] for t in grid[r0:r0 + 16, c].tolist()
+                          if t in pos] for c in range(c0, c0 + 8)]
+                for j in range(max(map(len, lists))):
+                    n += len({lst[j] // k for lst in lists if j < len(lst)})
+    return n * -(-B // 16)
+
+
+@pytest.mark.parametrize("variant,B", [("wide", 1), ("wide", 64),
+                                       ("wide_i8", 17), ("wide_i8", 128)])
+def test_wide_mma_count_is_the_kernel_schedule(variant, B):
+    """chip_smoke.py's ``wide_mma_count`` (kernel 6's tensor-core work, in
+    its log) against a loop over the kernel's stages, tiles and steps, on
+    groups of several depths with shuffled ids and pads."""
+    from chip_smoke import wide_mma_count
+    from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+        build_slot_postings,
+        pack_slot_classes,
+    )
+
+    rng = np.random.default_rng(B)
+    n_docs, n_terms = 1500, 400
+    docs = rng.integers(0, n_docs, 40_000)
+    heavy = docs < 300  # a few deep groups: several strides
+    docs = np.concatenate([docs, np.repeat(docs[heavy], 3)])
+    terms = rng.zipf(1.3, docs.size) % n_terms
+    pairs = np.unique(terms.astype(np.int64) * n_docs + docs)
+    t, d = pairs // n_docs, (pairs % n_docs).astype(np.int32)
+    indptr = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(np.bincount(t, minlength=n_terms), out=indptr[1:])
+    imp = rng.gamma(2.0, 1.5, d.size).astype(np.float32)
+    st, si, _ = build_slot_postings(indptr, d, imp, n_docs)
+    _, _, stream = pack_slot_classes(st, si, "cpu")
+    assert len(set(stream.group_rows.tolist())) > 1
+    uids = np.full(384, -2, np.int32)
+    uids[:300] = rng.choice(n_terms, 300, replace=False)
+    uids = torch.as_tensor(rng.permutation(uids))
+    k = 32 if variant == "wide_i8" else 16
+    got = wide_mma_count(stream, uids, B, variant)
+    assert got == _wide_mma_loop(stream, uids, B, k) > 0
+    none = torch.full((128,), -2, dtype=torch.int32)
+    assert wide_mma_count(stream, none, B, variant) == 0
 
 
 def test_plain_versions_refuse_unknown_variant(built):

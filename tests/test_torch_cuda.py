@@ -435,11 +435,11 @@ def test_acc_kernel_reads_presence_rows(slots, cuda):
 
 
 def test_mma_kernels_any_u(both_layouts, cuda):
-    """Kernels 5 and 6 at U = 1152 (device-memory uid table, the weight
-    rows of "wide" still in shared memory) and at U = 2048 (the bf16
-    weights of "wide" read from device memory, "acc" in two U chunks)
-    against their plain
-    versions, with the tolerance of test_any_u_and_any_t."""
+    """Kernels 5 and 6 at U = 1152 (device-memory uid table; kernel 6's A
+    fragments of 17 queries in shared memory, kernel 5's read from device
+    memory) and at U = 2048 (the bf16 A fragments of 40 queries read from
+    device memory) against their plain versions, with the tolerance of
+    test_any_u_and_any_t."""
     (vt, vi, stream, cu), _, n_terms, _ = both_layouts
     for B, T, n_u in ((17, 80, 1152), (40, 80, 2048)):
         tids, qtf = _wide_queries(np.random.default_rng(11), B, T, n_terms)
@@ -728,6 +728,77 @@ def test_acc_and_blocked_udedup_kernels_edges(edges, cuda, B):
     assert (got8[:, 128:256] == -1).all() and (got8[:, 512:640] == -1).all()
     cu = edges[0][3]
     assert _slots_key(got5, cu, B)[0, 3] == 0
+
+
+# ---- kernel 6 ("wide", "wide_i8"): one-hot products behind the stream ---
+
+
+def _wide_case(layout, cuda, u, wt, tol):
+    """Kernel 6 against its plain version (keys equal, one launch each) and,
+    bit for bit, "wide" against kernel 2 and "wide_i8" against kernel 3 on
+    the same (uids, w): the products are exact and each (query, column)
+    folds its matched rows in row order, as kernels 2-3 do."""
+    (vt, vi, stream, _), *_ = layout
+    outs = {}
+    for variant, same in SAME_AS.items():
+        before = UDEDUP_KERNELS[variant].launches
+        got = slots_udedup_keyed(stream, vt, vi, u, wt, variant)
+        torch.cuda.synchronize()
+        assert UDEDUP_KERNELS[variant].launches == before + 1
+        want = slots_udedup_plain(vt, vi, u, wt, variant)
+        torch.testing.assert_close(got, want, **tol)
+        assert torch.equal(got < 0, want < 0)
+        assert torch.equal(got, slots_udedup_keyed(stream, vt, vi, u, wt, same))
+        assert (want >= 0).any() and (want == -1).any()
+        outs[variant] = got
+    return outs
+
+
+@pytest.mark.parametrize("B", [1, 17, 64, 65, 128])
+def test_wide_kernels_any_depth_and_batch(deep, cuda, B):
+    """Kernel 6 on groups of 8-136 rows (not all whole stages), 16 queries
+    a block (B = 1) or 64 (one m16 tile of them or four), one query chunk
+    or several, a repeated term, shared terms, an all-pad query, the ids
+    shuffled."""
+    _, _, n_terms, rng = deep
+    tids, qtf = _blocked_queries(rng, B, 8, n_terms)
+    outs = _wide_case(deep, cuda, *_udedup_inputs(cuda, tids, qtf, B), WIDE_TOL)
+    if B > 2:
+        assert (outs["wide"][2] == -1).all()
+
+
+@pytest.mark.parametrize("B,T,n_u", [(1, 8, 128), (17, 8, 128), (64, 6, 256),
+                                     (65, 19, 1024), (128, 10, 1024),
+                                     (17, 80, 1152), (40, 80, 2048),
+                                     (64, 60, 2176)])
+def test_wide_kernels_any_u(both_layouts, cuda, B, T, n_u):
+    """Kernel 6 at U = 128-1024 (the shared-memory uid table; its A
+    fragments in shared memory) and above (the device-memory uid table;
+    the A fragments in shared memory where they fit, and at U = 2048 and
+    2176 bf16 with 48-64 queries a block read from device memory), on the
+    12k-doc corpus."""
+    n_terms = both_layouts[2]
+    tids, qtf = _wide_queries(np.random.default_rng(11), B, T, n_terms)
+    u, wt = _udedup_inputs(cuda, tids, qtf, n_u)
+    assert u.numel() == n_u
+    _wide_case(both_layouts, cuda, u, wt, WIDE_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 16, 33, 64, 128])
+def test_wide_kernels_edges(edges, cuda, B):
+    """Kernel 6 on groups with no real posting (all-pad columns, keyed
+    -1), columns of up to 200 postings and one of 2,500 from the most
+    frequent terms (many matches a column in one stage, more than one
+    step of the n8 tile takes), and a matched doc whose score is 0: keyed
+    0, not -1."""
+    tids, qtf = _edge_queries(edges, B, 8)
+    u, wt = _udedup_inputs(cuda, tids, qtf)
+    outs = _wide_case(edges, cuda, u, wt, WIDE_TOL)
+    cu = edges[0][3]
+    for got in outs.values():
+        dense = _slots_key(got, cu, B)
+        assert dense[0, 3] == 0
+        assert (dense[:, 128:256] == -1).all() and (dense[:, 512:640] == -1).all()
 
 
 def test_wrappers_refuse_wrong_inputs(slots, cuda):

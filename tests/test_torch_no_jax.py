@@ -89,8 +89,7 @@ def test_kernels_are_plain_c_builds():
         assert "cpp_extension" not in text, p
         assert "torch/extension.h" not in text, p
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bm25_blocked.cu", "bm25_slots.cu", "bm25_slots_mma.cu",
-        "dense_stats.cu",
+        "bm25_blocked.cu", "bm25_slots.cu", "dense_stats.cu",
     ]
 
 
