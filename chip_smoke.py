@@ -45,6 +45,14 @@ non-zero exit):
      the slot engine and the numpy oracle; then queries/s, p50 latency and
      one torch.profiler trace per batch (device busy time, idle share,
      device time per kernel);
+  5b. the bi-encoder at full width (12 layers, 768 wide; weights drawn
+     from --seed, no checkpoint read): the card's forward against the
+     port's on the CPU at (B, L) = (1, 16), (16, 16), (64, 16), (1, 512);
+     device ms of one forward beside its bound; search_batch with it on
+     the 100k index at B = 1, 16, 64 (launches checked as in 5, no host
+     sync from encode to rank, top-10 against the numpy oracle fed the
+     card's query vectors, timings as in 5); a 2,000-doc index embedded
+     by it on the card (chunks/s), served and checked the same way;
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
      slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
@@ -62,15 +70,21 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from modern_search_engines_project_tpu_torch import bench_kernels
 from modern_search_engines_project_tpu_torch.config import Config
-from modern_search_engines_project_tpu_torch.index import IndexBuilder
+from modern_search_engines_project_tpu_torch.index import Document, IndexBuilder
 from modern_search_engines_project_tpu_torch.kernel_times import device_ms
-from modern_search_engines_project_tpu_torch.models import HashingEncoder
+from modern_search_engines_project_tpu_torch.models import (
+    EncoderConfig,
+    HashingEncoder,
+    TorchEncoder,
+    init_reference_params,
+)
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     BLOCKED_KERNEL,
@@ -140,6 +154,11 @@ WIDE_RTOL = 1e-6
 # after min-max normalization that stays far below 1e-3.  Ids must match
 # except where neighbouring fused scores lie within 1e-3 of each other.
 E2E_ATOL = 1e-3
+# The bi-encoder: the card and the CPU run the same bf16 arithmetic with
+# products reduced in other orders; bf16 roundings that differ by an ulp
+# compound over 12 layers -> unit embeddings to 5e-3, cosine 0.9999.
+ENC_ATOL = 5e-3
+ENC_COS = 0.9999
 
 
 def log(*a):
@@ -594,16 +613,18 @@ def drive(eng, batches, want_bm25, label):
     return results, launches
 
 
-def same_as_oracle(art, enc, cfg, results, queries, what):
+def same_as_oracle(art, enc, cfg, results, queries, what, qvecs=None):
     """Top-10 against the numpy oracle on the same bf16-rounded bank and
-    query."""
+    query; the query vectors are ``enc.encode`` of each processed query,
+    or ``qvecs`` (the engine's own, one row a query) where given."""
     bf = dataclasses.replace(
         art,
         chunk_emb=torch.from_numpy(art.chunk_emb).bfloat16().float().numpy(),
     )
     for i, q in enumerate(queries):
         pq = preprocess_query(q)
-        qe = torch.from_numpy(enc.encode(pq)).bfloat16().float().numpy()
+        qe = enc.encode(pq) if qvecs is None else qvecs[i]
+        qe = torch.from_numpy(qe).bfloat16().float().numpy()
         ref = hybrid_search_numpy(
             bf, pq, qe, cfg.top_k_retrieval, 10, cfg.smoothing,
             diversification=cfg.diversification,
@@ -628,7 +649,7 @@ def time_path(eng, batches, label, name, smi):
         log(f"  {label} search_batch {key}: p50 {p50 * 1e3:.3f} ms, "
             f"{B / p50:.1f} queries/s on {name} ({smi}); host stage means "
             f"(ms): {host}")
-        prof = profile_batch(eng, qs)
+        prof = profile_call(lambda: eng.search_batch(qs, top_k=10))
         if prof is None:
             log(f"    torch.profiler, {label} {key}: no device events in the "
                 "trace, device time not measured")
@@ -724,18 +745,18 @@ def check_wide_batches(seed, dev):
     log(f"wide batches, 17 queries on 12,000 docs, kernel ms: {json.dumps(ms)}")
 
 
-def profile_batch(eng, qs):
-    """One warm ``search_batch`` under ``torch.profiler``: device busy time
-    (the union of the device's kernel, copy and set intervals), the device's
-    idle share of the traced span (first to last event, host or device), and
-    device time per kernel name.  None when the trace holds no device
+def profile_call(fn):
+    """One warm ``fn()`` under ``torch.profiler``: device busy time (the
+    union of the device's kernel, copy and set intervals), the device's
+    idle share of the traced span (first to last event, host or device),
+    and device time per kernel name.  None when the trace holds no device
     event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        eng.search_batch(qs, top_k=10)
+        fn()
         torch.cuda.synchronize()
     evs = [e for e in p.events() if e.time_range.end > e.time_range.start]
     dev = sorted(
@@ -785,6 +806,209 @@ def same_top(got, want, what):
             check(g.window_index == w.window_index, f"{what}[{i}]: window")
 
 
+def encoder_bound(cfg, B, L):
+    """Least time of one forward of ``cfg`` on B x L tokens: the bf16
+    weights outside the embedding read once, the B x L embedding rows
+    gathered, ids and mask in, f32 embeddings out; the products' operations
+    (2 a weight a token, plus the two attention products, 2 x L^2 x dim a
+    sequence and layer each) at the bf16 tensor-core peak.  Also returns
+    the attention products' operations, which the port runs in f32."""
+    D, Hd = cfg.dim, cfg.dim * cfg.mlp_ratio
+    w = cfg.n_layers * (3 * D * D + D * D + 2 * Hd * D + Hd * D)
+    nbytes = w * 2 + B * L * D * 2 + B * L * 8 + B * D * 4
+    att = 4 * B * L * L * D * cfg.n_layers
+    ms, by = bound(nbytes, 2 * w * B * L + att, BF16_OPS)
+    return ms, by, att
+
+
+def check_sync_free(fn, what):
+    """Run ``fn()`` with CUDA's sync debug mode at "error": any call that
+    makes the host wait for the device raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        raise RuntimeError(f"{what}: synchronised with the host ({e})") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"  {what}: no host sync (sync debug mode 'error')")
+    return out
+
+
+def encoder_phase(seed, art, words, dfs, cfg, slot_batches, name, smi,
+                  enc_cfg=None, n_docs=2_000):
+    """The trained bi-encoder's path at full width (``EncoderConfig()``:
+    12 layers, 768 wide, 50,257 ids) with weights drawn from ``seed``
+    (nothing read from a checkpoint):
+      (a) the reference-form tree carried to the card by
+          ``params_from_reference`` (through ``TorchEncoder``);
+      (b) the card's forward against the port's forward on the CPU on the
+          same weights, (B, L) = (1, 16), (16, 16), (64, 16), (1, 512);
+      (c) device ms of one forward at five shapes beside its bound, and the
+          host's enqueue time and device operations of one forward;
+      (d) ``search_batch`` with the encoder on the 100k index at B = 1, 16
+          and 64 (each batch's launches checked as in phase 5), the route
+          from encode to rank free of host syncs, the top-10 against the
+          numpy oracle fed the card's own query vectors, and the timings
+          beside the hashing encoder's;
+      (e) an index of ``n_docs`` synthetic docs embedded by the encoder on
+          the card (512-token windows, step 450), served and checked the
+          same way.
+    Returns the launch counts of the (d) batches."""
+    enc_cfg = enc_cfg or EncoderConfig()
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    tree = init_reference_params(
+        enc_cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    t_draw = time.time() - t0
+    t0 = time.time()
+    enc = TorchEncoder(enc_cfg, params=tree)
+    torch.cuda.synchronize()
+    resident = sum(p.numel() * p.element_size()
+                   for p in enc.model.parameters())
+    log(f"encoder: {enc_cfg}; weights drawn in {t_draw:.1f} s, on "
+        f"{enc.device} in {time.time() - t0:.1f} s: {resident / 1e6:.1f} MB "
+        f"resident (bf16 weights and table, f32 LayerNorms), params_digest "
+        f"{enc.params_digest()}")
+
+    # (b) the card against the port on the CPU (atol 5e-3, cosine 0.9999)
+    cpu = TorchEncoder(enc_cfg, params=tree, device="cpu")
+    del tree
+    long_text = " ".join(rng.choice(words, 600))
+    errs = {}
+    for B, L in ((1, 16), (16, 16), (64, 16), (1, 512)):
+        texts = ([long_text] if L == 512 else
+                 query_strings(rng, dfs, words, B))
+        check(enc.bucket_len([enc.tokenizer.encode(t) for t in texts]) == L,
+              f"encoder texts for L={L}: bucket is not {L}")
+        got = enc.encode_batch_device(texts)
+        check(got.device.type == enc.device.type and got.shape == (B, enc.dim),
+              f"encoder B={B} L={L}: {got.device} {tuple(got.shape)}")
+        got = got.cpu().numpy()
+        want = cpu.encode_batch(texts)
+        e = float(np.abs(got - want).max())
+        cos = float((got * want).sum(1).min())
+        check(np.isfinite(got).all() and e <= ENC_ATOL and cos >= ENC_COS,
+              f"encoder B={B} L={L}: card vs cpu max |d| {e}, min cos {cos}")
+        errs[f"B={B} L={L}"] = {"max_abs_err": e, "min_cos": cos}
+    log(f"  card vs the port on the cpu, unit embeddings: {json.dumps(errs)}")
+    del cpu
+
+    # (c) device time of one forward beside its bound; host enqueue.  A
+    # forward is ~900 device operations, near the ~1,000 launches the
+    # queue holds, so ``device_ms`` cannot queue one behind a sleep: the
+    # device time is the busy time of one traced forward (the union of its
+    # device intervals), beside the event-timed wall time of one forward.
+    times = {}
+    for B, L in ((1, 16), (16, 16), (64, 16), (1, 512), (64, 512)):
+        ids = torch.randint(4, enc_cfg.vocab_size, (B, L), device=enc.device,
+                            dtype=torch.int32)
+        mask = torch.ones_like(ids)
+
+        def fwd():
+            with torch.no_grad():
+                return enc.model(ids, mask)
+
+        wall = cuda_ms(fwd, 3, 2)
+        prof = profile_call(fwd)
+        b_ms, b_by, att = encoder_bound(enc_cfg, B, L)
+        times[f"B={B} L={L}"] = dict(
+            device_busy_ms=None if prof is None else prof["device_busy_ms"],
+            device_events=None if prof is None else prof["device_events"],
+            wall_ms=wall, bound_ms=b_ms, bound_by=b_by,
+            attention_f32_ms=att / F32_OPS * 1e3,
+            top_device_ms=None if prof is None else prof["top_device_ms"])
+    for B in (1, 64):
+        texts = query_strings(rng, dfs, words, B)
+        enc.encode_batch_device(texts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_batch_device(texts)
+        times[f"B={B} L=16"]["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    log(f"  encoder forward on {name} ({smi}): device busy ms of one traced "
+        f"forward and its device operations, event-timed wall ms, the bound "
+        f"(bf16 peak; the attention products' time at the f32 peak, which "
+        f"the port's f32 products run at, apart), host enqueue ms of one "
+        f"encode_batch_device: {json.dumps(times)}")
+
+    # (d) search_batch with the encoder on the 100k index
+    t0 = time.time()
+    eng = SearchEngine(art, enc, cfg)
+    log(f"  encoder engine on the 100k index: built in {time.time() - t0:.1f} s")
+    want_bm25 = {"B=1": "bm25_slots", "B=16": "bm25_slots_udedup_sublane",
+                 "B=64": "bm25_slots_udedup_i8"}
+    results, launches = drive(eng, slot_batches, want_bm25, "encoder")
+    for key, qs in slot_batches.items():
+        tids, qtf, processed = eng.prepare_queries(qs)
+        qv = check_sync_free(lambda: eng.encode_queries(processed),
+                             f"encode_queries {key}")
+        check(isinstance(qv, torch.Tensor) and qv.device == eng.device,
+              f"encode_queries {key}: not a tensor on the card")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng._device_rank(tids, qtf, qv)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        n_sync = sum("synchroniz" in str(w.message) for w in caught)
+        log(f"  _device_rank {key} after the encode: {n_sync} host syncs "
+            "(sync debug mode 'warn')")
+        qn = qv.cpu().numpy()
+        same_as_oracle(art, None, cfg, results[key], qs[:3], f"encoder {key}",
+                       qvecs=qn)
+    log("  encoder path == numpy oracle (fed the card's query vectors) on 3 "
+        "queries of each batch")
+    time_path(eng, slot_batches, "encoder", name, smi)
+    log("  (the slot path's lines above are the same batches with the "
+        "hashing encoder)")
+    del eng
+
+    # (e) an index embedded by the encoder on the card
+    p = dfs[1:] / dfs[1:].sum()  # df-weighted draws of terms 1..
+    lens = rng.integers(200, 700, n_docs)
+    ids = 1 + rng.choice(len(p), int(lens.sum()), p=p)
+    docs = [Document(i, f"https://www.s{i % 97}.de/p{i}", f"t{i}",
+                     " ".join(words[j] for j in part))
+            for i, part in enumerate(np.split(ids, np.cumsum(lens)[:-1]))]
+    spent = [0.0, 0]
+    encode = enc.encode_batch
+
+    def timed(texts):  # IndexBuilder's calls into the encoder, timed
+        t = time.perf_counter()
+        out = encode(texts)
+        spent[0] += time.perf_counter() - t
+        spent[1] += len(texts)
+        return out
+
+    enc.encode_batch = timed
+    t0 = time.time()
+    try:
+        small = IndexBuilder(enc, cfg).build(docs)
+    finally:
+        del enc.encode_batch
+    build_s = time.time() - t0
+    check(small.n_chunks == spent[1] and np.isfinite(small.chunk_emb).all(),
+          f"encoder index: {small.n_chunks} chunks, {spent[1]} encoded")
+    log(f"  encoder index on {name} ({smi}): {n_docs} docs, {small.n_chunks} "
+        f"windows of <= {cfg.window_size} tokens, built in {build_s:.2f} s "
+        f"({small.n_chunks / build_s:.1f} chunks/s); the encoder's share "
+        f"{spent[0]:.2f} s ({spent[1] / spent[0]:.1f} chunks/s)")
+    eng_small = SearchEngine(small, enc, cfg)
+    df_of = dict(zip(words, dfs))  # the 3 rarest words of 16 of the docs
+    qs = [" ".join(sorted(set(docs[i].text.split()), key=df_of.get)[:3])
+          for i in rng.choice(n_docs, 16, replace=False)]
+    res = eng_small.search_batch(qs, top_k=10)
+    check(all(len(r) > 0 for r in res), "encoder index: an empty result")
+    _, _, processed = eng_small.prepare_queries(qs)
+    qn = eng_small.encode_queries(processed).cpu().numpy()
+    same_as_oracle(small, None, cfg, res, qs[:4], "encoder index", qvecs=qn)
+    log("  encoder index: 16 queries served, 4 == numpy oracle")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -796,6 +1020,9 @@ def main(argv=None) -> int:
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in f32, as the reference's do: with this on,
+    # cuBLAS may round partial sums of a bf16 product (split-K) to bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -901,6 +1128,10 @@ def main(argv=None) -> int:
 
     for label, (e, batches, _) in paths.items():
         time_path(e, batches, label, name, smi)
+
+    # --- the bi-encoder's path ----------------------------------------------
+    launches["encoder"] = encoder_phase(args.seed, art, words, dfs, cfg,
+                                        slot_batches, name, smi)
 
     # --- phase 6: small phases ----------------------------------------------
     check_empty_index(cfg, enc)

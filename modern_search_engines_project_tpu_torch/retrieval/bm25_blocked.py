@@ -96,7 +96,13 @@ def _blocked_reduce(blk: BlockedPostings, B: int, width: int,
     offsets, as in the kernels: doc j owns ``[doc_off[i, j],
     doc_off[i, j + 1])`` and the slots from ``doc_off[i, 128]`` on are pads,
     which add neither score nor presence.  Rows go ``step`` at a time so a
-    [width, R, p_blk] temporary stays under 2^24 elements."""
+    [width, R, p_blk] temporary stays under 2^24 elements.
+
+    Each doc's products are summed in f32 in posting order, as the kernels
+    sum them, so the result has the same bits on every run and device:
+    pass k adds, for every (query, doc), its k-th nonzero product, so no
+    target of ``index_add_`` gets two nonzero addends in one pass (adding
+    0 leaves a sum as it is, in any order)."""
     n_blocks, p_blk = blk.terms.shape
     dev = blk.terms.device
     s = torch.zeros(B, n_blocks * DOC_BLOCK, dtype=torch.float32, device=dev)
@@ -106,16 +112,25 @@ def _blocked_reduce(blk: BlockedPostings, B: int, width: int,
     for r0 in range(0, n_blocks, step):
         r1 = min(r0 + step, n_blocks)
         m, present = posting_weights(slice(r0, r1))
+        off = blk.doc_off[r0:r1]
         loc = torch.searchsorted(
-            blk.doc_off[r0:r1, 1:].contiguous(),
+            off[:, 1:].contiguous(),
             pos.expand(r1 - r0, p_blk).contiguous(), right=True,
         )
         real = loc < DOC_BLOCK
+        loc = loc.clamp(max=DOC_BLOCK - 1)
         rows = torch.arange(r0, r1, device=dev)[:, None] * DOC_BLOCK
-        doc = (loc.clamp(max=DOC_BLOCK - 1) + rows).reshape(-1)
+        doc = (loc + rows).reshape(-1)
         v = torch.where(real, m * blk.impact[r0:r1], 0.0)
-        s.index_add_(1, doc, v.reshape(B, -1))
         c.index_add_(1, doc, (present & real).to(torch.float32).reshape(B, -1))
+        # rank of each nonzero product among its doc's nonzero products
+        nz = v != 0
+        before = nz.cumsum(2, dtype=torch.int32) - nz.to(torch.int32)
+        first = off.gather(1, loc).long().clamp(max=p_blk - 1)
+        first = first.expand(B, -1, -1).contiguous()
+        rank = torch.where(nz, before - before.gather(2, first), -1)
+        for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+            s.index_add_(1, doc, torch.where(rank == k, v, 0.0).reshape(B, -1))
     keyed = torch.where((c > 0) & (s >= 0), s, -1.0)
     sentinel = torch.full((B, 1), -1.0, dtype=torch.float32, device=dev)
     return torch.cat([keyed, sentinel], dim=1)

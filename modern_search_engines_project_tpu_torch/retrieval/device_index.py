@@ -52,6 +52,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def upload(a, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``.  To the card it goes as one
+    pinned, non-blocking copy, which does not make the host wait for the
+    work queued before it (a pageable copy synchronises the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

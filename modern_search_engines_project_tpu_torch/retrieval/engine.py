@@ -35,6 +35,7 @@ from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
 )
 from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     DeviceIndex,
+    upload,
 )
 from modern_search_engines_project_tpu_torch.retrieval.numpy_ref import (
     preprocess_query,
@@ -118,8 +119,20 @@ class SearchEngine:
         t_eff = min(t_eff, T)
         return term_ids[:, :t_eff], qtf[:, :t_eff], processed
 
-    def encode_queries(self, processed: Sequence[str]) -> np.ndarray:
-        """Unit-norm query embeddings [B, dim] from a host encoder."""
+    def encode_queries(self, processed: Sequence[str]):
+        """Unit-norm query embeddings [B, dim].
+
+        An encoder with ``encode_batch_device`` (``TorchEncoder``) gives a
+        tensor on its device, normalised there with no host sync: the
+        ranking dispatch queues behind the encode on the same stream, so
+        the batch pays one host round trip, when the results come back.
+        Host encoders give numpy, normalised on the host."""
+        enc_dev = getattr(self.encoder, "encode_batch_device", None)
+        if enc_dev is not None:
+            q = enc_dev(list(processed)).float()
+            return q / torch.clamp(
+                torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12
+            )
         q = np.asarray(self.encoder.encode_batch(list(processed)), np.float32)
         norms = np.linalg.norm(q, axis=1, keepdims=True)
         return q / np.maximum(norms, 1e-12)
@@ -137,13 +150,11 @@ class SearchEngine:
         tids_np = np.asarray(term_ids)
         B, T = tids_np.shape
 
+        def up(a, dtype):  # does not wait for the query encode
+            return upload(np.asarray(a, dtype), dev)
+
         def dense_args():
-            return (
-                torch.as_tensor(tids_np, dtype=torch.int32, device=dev),
-                torch.as_tensor(
-                    np.asarray(qtf), dtype=torch.float32, device=dev
-                ),
-            )
+            return up(tids_np, np.int32), up(qtf, np.float32)
 
         if not d.buckets:  # no chunk buckets: blocked + packed-bank tail
             return ops.hybrid_rank_blocked(d, *dense_args(), q, **kw)
@@ -159,8 +170,7 @@ class SearchEngine:
                 plan = "blocked"
         if plan is not None:
             uids, w = dedup_query_terms(term_ids, qtf)
-            uw = (torch.as_tensor(uids, device=dev),
-                  torch.as_tensor(w, device=dev))
+            uw = (up(uids, np.int32), up(w, np.float32))
             if plan == "blocked":
                 return ops.hybrid_rank_buckets_udedup(d, *uw, q, **kw)
             return ops.hybrid_rank_slots_udedup(d, *uw, q, variant=plan, **kw)

@@ -249,6 +249,52 @@ def test_udedup_plain_takes_more_than_1024_terms():
     assert (oracle >= 0).any()
 
 
+def _posting_order_oracle(blk, m, present):
+    """numpy: each doc's products m * impact summed in f32 one posting at
+    a time, in posting order; keyed like the kernels."""
+    terms, impact, off = (x.numpy() for x in (blk.terms, blk.impact,
+                                              blk.doc_off))
+    B = m.shape[0]
+    s = np.zeros((B, blk.n_blocks * 128), np.float32)
+    c = np.zeros((B, blk.n_blocks * 128), np.int64)
+    for b in range(B):
+        for i in range(blk.n_blocks):
+            for j in range(128):
+                acc = np.float32(0.0)
+                for p in range(off[i, j], off[i, j + 1]):
+                    acc = np.float32(acc + np.float32(m[b, i, p] * impact[i, p]))
+                    c[b, i * 128 + j] += present[b, i, p]
+                s[b, i * 128 + j] = acc
+    keyed = np.where((c > 0) & (s >= 0), s, np.float32(-1.0))
+    return np.concatenate([keyed, np.full((B, 1), -1.0, np.float32)], axis=1)
+
+
+@pytest.mark.parametrize("B,step_rows", [(1, 8), (5, 1), (7, 3)])
+def test_reduce_sums_in_posting_order(built, B, step_rows):
+    """The plain versions' reduction equals a numpy loop that sums each doc
+    in posting order in f32, bit for bit (so it gives the same bits on
+    every run, as the kernels do).  Weights: small integers, random f32
+    and zeros, so a doc holds several nonzero products of mixed sign."""
+    _, _, _, blk, _ = built
+    rng = np.random.default_rng(B * 10 + step_rows)
+    shape = (B,) + tuple(blk.terms.shape)
+    m = np.where(rng.random(shape) < 0.3,
+                 np.where(rng.random(shape) < 0.5,
+                          rng.integers(1, 4, shape),
+                          rng.standard_normal(shape) * 3), 0.0)
+    m = m.astype(np.float32)
+    present = (m != 0) | (rng.random(shape) < 0.05)
+    m_t, p_t = torch.as_tensor(m), torch.as_tensor(present)
+    # width chosen so that rows go step_rows at a time
+    width = max(1, (1 << 24) // (step_rows * blk.p_blk))
+    got = port._blocked_reduce(blk, B, width,
+                               lambda rows: (m_t[:, rows], p_t[:, rows]))
+    want = _posting_order_oracle(blk, m, present)
+    assert (want >= 0).any() and (want == -1).any()
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 def test_all_pad_query_keys_minus_one(built):
     """Query pads (-1) never match the posting pads (-1), and pads never
     add presence to doc 0 of their row."""

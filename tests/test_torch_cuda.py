@@ -24,7 +24,12 @@ import torch
 
 from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import Document, IndexBuilder
-from modern_search_engines_project_tpu_torch.models import HashingEncoder
+from modern_search_engines_project_tpu_torch.models import (
+    EncoderConfig,
+    HashingEncoder,
+    TorchEncoder,
+    init_reference_params,
+)
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     BLOCKED_KERNEL,
@@ -72,6 +77,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products reduce in f32, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -263,6 +270,27 @@ def test_blocked_kernel_matches_plain_and_slots(both_layouts, cuda, B, T):
     assert (got >= 0).any() and (got == -1).any()
     if B > 2:
         assert (got[2] == -1).all()  # the all-pad query matches nothing
+
+
+@pytest.mark.parametrize("B,T", [(16, 8), (64, 40)])
+def test_blocked_plain_versions_repeat_their_bits(both_layouts, cuda, B, T):
+    """The yardsticks of kernels 7 and 8 sum each doc in posting order, so
+    five runs on one batch give the same bits (an ``index_add_`` of all
+    products at once changed its order from run to run on the card)."""
+    _, blk, n_terms, _ = both_layouts
+    tids, qtf = _blocked_queries(np.random.default_rng(B), B, T, n_terms)
+    t = torch.as_tensor(tids, device=cuda)
+    q = torch.as_tensor(qtf, device=cuda)
+    uids, w = dedup_query_terms(tids, qtf)
+    u = torch.as_tensor(uids, device=cuda)
+    wt = torch.as_tensor(w, device=cuda)
+    for plain, args in ((blocked_plain, (t, q)),
+                        (blocked_udedup_plain, (u, wt))):
+        first = plain(blk, *args)
+        assert (first >= 0).any()
+        for _ in range(4):
+            assert torch.equal(plain(blk, *args).view(torch.int32),
+                               first.view(torch.int32))
 
 
 @pytest.mark.parametrize("B,T", [(8, 4), (16, 8), (40, 16), (64, 16)])
@@ -885,3 +913,67 @@ def test_empty_index_on_card(cuda):
     assert eng.bm25_search("castle") == []
     assert eng.dense_search("castle", top_k=5) == []
     assert BLOCKED_KERNEL.launches == before + 2
+
+
+# ---- the bi-encoder on the card ---------------------------------------------
+
+ENC_ATOL = 5e-3  # unit embeddings, card against the CPU port (bf16 rounding)
+
+
+@pytest.fixture(scope="module")
+def full_width(cuda):
+    """The reference's default config (12 layers, 768 wide) with weights
+    drawn from a numpy seed, on the card and on the CPU."""
+    cfg = EncoderConfig()
+    rng = np.random.default_rng(0)
+    tree = init_reference_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    return TorchEncoder(cfg, params=tree), TorchEncoder(cfg, params=tree,
+                                                        device="cpu")
+
+
+@pytest.mark.parametrize("n_words,B", [(3, 1), (3, 16), (40, 4), (600, 1)])
+def test_encoder_on_card_matches_cpu(full_width, n_words, B):
+    """Length buckets 16, 64 and 512 (600 words are cut to 510)."""
+    card, cpu = full_width
+    assert card.device.type == "cuda"
+    assert card.params_digest() == cpu.params_digest()
+    rng = np.random.default_rng(n_words * 100 + B)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 5000, n_words))
+             for _ in range(B)]
+    got = card.encode_batch_device(texts)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert got.shape == (B, 768)
+    got = got.cpu().numpy()
+    want = cpu.encode_batch(texts)
+    assert np.abs(got - want).max() <= ENC_ATOL
+    assert (got * want).sum(1).min() >= 0.9999
+    np.testing.assert_allclose(card.encode_batch(texts), got)
+
+
+def test_engine_with_encoder_on_card_matches_cpu(cuda):
+    """search_batch with the bi-encoder on the card against the CPU engine
+    (same bf16 bank) given the card's own query vectors."""
+    docs, words = _docs(3, n=120)
+    enc_cfg = EncoderConfig(vocab_size=8192, dim=64, n_layers=2, n_heads=4,
+                            mlp_ratio=2, max_len=32)
+    enc = TorchEncoder(enc_cfg, generator=torch.Generator().manual_seed(0))
+    cfg = Config(embedding_dim=64, window_size=64, step_size=50,
+                 top_k_retrieval=200, top_k_reranking=10)
+    art = IndexBuilder(enc, cfg).build(docs)
+    gpu = SearchEngine(art, enc, cfg)
+    cpu = SearchEngine(art, HashingEncoder(dim=64), cfg,
+                       bank_dtype=torch.bfloat16, device="cpu")
+    rng = np.random.default_rng(4)
+    for B in (1, 16, 64):
+        qs = [" ".join(rng.choice(words, 4)) for _ in range(B)]
+        tids, qtf, processed = gpu.prepare_queries(qs)
+        qv = gpu.encode_queries(processed)
+        assert isinstance(qv, torch.Tensor) and qv.device.type == "cuda"
+        got = gpu.finish_batch(gpu._to_host(gpu._device_rank(tids, qtf, qv)),
+                               qs, 10)
+        want = cpu.finish_batch(
+            cpu._to_host(cpu._device_rank(tids, qtf, qv.cpu())), qs, 10)
+        _same_results(got, want)
+        assert any(len(r) for r in got)
+        _same_results(gpu.search_batch(qs, top_k=10), got)

@@ -69,6 +69,36 @@ def test_port_searches_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_encoder_loads_and_encodes_with_jax_flax_msgpack_blocked():
+    """The bi-encoder's checkpoint reader needs neither the reference's
+    serializer nor the msgpack package: the committed demo checkpoint
+    loads and encodes, with the reference's digest."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = sys.modules["flax"] = None
+        sys.modules["msgpack"] = None
+        from modern_search_engines_project_tpu_torch.models import TorchEncoder
+        enc = TorchEncoder.from_checkpoint("runs/encoder-demo", device="cpu")
+        out = enc.encode_batch(["castle tour", "the neckar river", ""])
+        assert out.shape == (3, 64), out.shape
+        loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
+                  or m.startswith("modern_search_engines_project_tpu.")]
+        assert not loaded, loaded
+        print(enc.params_digest())
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    from modern_search_engines_project_tpu.models.encoder import JaxEncoder
+
+    want = JaxEncoder.from_checkpoint(str(ROOT / "runs" / "encoder-demo"))
+    assert out.stdout.strip() == want.params_digest()
+
+
 @pytest.mark.parametrize(
     "path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES]
 )
