@@ -53,6 +53,16 @@ non-zero exit):
      sync from encode to rank, top-10 against the numpy oracle fed the
      card's query vectors, timings as in 5); a 2,000-doc index embedded
      by it on the card (chunks/s), served and checked the same way;
+  5c. stage 3 and the search assistant at full width (weights drawn from
+     --seed; the configurations of runs/cross-encoder-real and
+     runs/summarizer-real written out, no checkpoint read): rescore on the
+     card against the port on the CPU; search_batch with cross_encoder=
+     on the 100k index at B = 1, 16, 64 (launches checked as in 5, the
+     docs, windows and original_similarity of stage 2 kept, scores and
+     order against a CPU rescore), p50, forwards a batch and traces; the
+     decoder's greedy decode on the card against the CPU's by teacher
+     forcing, free of host syncs, with ms a summary; and
+     GenerativeSummarizer.generate_summary over a stage-3 result;
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
      slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
@@ -80,11 +90,18 @@ from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import Document, IndexBuilder
 from modern_search_engines_project_tpu_torch.kernel_times import device_ms
 from modern_search_engines_project_tpu_torch.models import (
+    CrossEncoderReranker,
+    DecoderConfig,
     EncoderConfig,
+    GreedyGenerator,
     HashingEncoder,
     TorchEncoder,
+    WordVocab,
+    init_cross_encoder_params,
+    init_decoder_params,
     init_reference_params,
 )
+from modern_search_engines_project_tpu_torch.models.decoder import build_decoder
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     BLOCKED_KERNEL,
@@ -117,12 +134,14 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     build_slot_postings,
     pack_blocked,
     pack_slot_classes,
+    resolve_device,
 )
 from modern_search_engines_project_tpu_torch.retrieval.engine import SearchEngine
 from modern_search_engines_project_tpu_torch.retrieval.numpy_ref import (
     hybrid_search_numpy,
     preprocess_query,
 )
+from modern_search_engines_project_tpu_torch.serving import GenerativeSummarizer
 from modern_search_engines_project_tpu_torch.synthetic import (
     make_artifacts,
     query_strings,
@@ -159,6 +178,24 @@ E2E_ATOL = 1e-3
 # compound over 12 layers -> unit embeddings to 5e-3, cosine 0.9999.
 ENC_ATOL = 5e-3
 ENC_COS = 0.9999
+# Stage 3 and the assistant, card against the port on the CPU (same bf16
+# arithmetic, other reduction orders, 4 layers): cross-encoder sigmoid
+# scores to 5e-3 (the port against the reference on the CPU: 2.5e-4 on
+# the trained checkpoint); decoder logits to 2^-5 of their scale (the
+# port against the reference: 2^-6 at full width).
+CE_ATOL = 5e-3
+DEC_RTOL = 2.0 ** -5
+# The committed checkpoints' configurations, written out: this script
+# reads no checkpoint, so it runs where runs/ is absent.  They equal
+# runs/cross-encoder-real/config.json and
+# runs/summarizer-real/config.json (tests/test_torch_cross_encoder.py
+# holds them to it).
+CE_CFG = EncoderConfig(vocab_size=50257, dim=384, n_layers=4, n_heads=6,
+                       mlp_ratio=4, max_len=192, dtype="bfloat16",
+                       rope_base=10000.0)
+DEC_CFG = DecoderConfig(vocab_size=32000, dim=256, n_layers=4, n_heads=4,
+                        mlp_ratio=4, max_len=192, dtype="bfloat16",
+                        rope_base=10000.0)
 
 
 def log(*a):
@@ -584,7 +621,7 @@ def shared_batch(rng, dfs, words, B=64, pool=100):
     return qs
 
 
-def drive(eng, batches, want_bm25, label):
+def drive(eng, batches, want_bm25, label, top_k=10):
     """Each batch through ``search_batch`` as its own path: every launch
     counter set to 0 just before, read just after; the batch's BM25 kernel
     must have launched once, the stats kernel once per bucket, nothing
@@ -594,7 +631,7 @@ def drive(eng, batches, want_bm25, label):
     for key, qs in batches.items():
         for k in cuda_lib.KERNELS:
             k.launches = 0
-        results[key] = eng.search_batch(qs, top_k=10)
+        results[key] = eng.search_batch(qs, top_k=top_k)
         launches[key] = {k.name: k.launches for k in cuda_lib.KERNELS}
         log(f"main path {label} {key} launches: {launches[key]}")
         for k_name, n in launches[key].items():
@@ -821,6 +858,19 @@ def encoder_bound(cfg, B, L):
     return ms, by, att
 
 
+def decode_step_bound(cfg):
+    """Least time of one greedy step of ``cfg`` (B = 1): the bf16 weights
+    and the token table read once (the table serves the L embedding rows
+    and the tied head), ids and mask in, one row of bf16 logits out; the
+    products' operations for L tokens plus the head's one row, at the bf16
+    tensor-core peak."""
+    D, Hd, V, L = cfg.dim, cfg.dim * cfg.mlp_ratio, cfg.vocab_size, cfg.max_len
+    w = cfg.n_layers * (3 * D * D + D * D + 2 * Hd * D + Hd * D)
+    nbytes = w * 2 + V * D * 2 + L * 8 + V * 2
+    ops = 2 * w * L + 4 * L * L * D * cfg.n_layers + 2 * V * D
+    return bound(nbytes, ops, BF16_OPS)
+
+
 def check_sync_free(fn, what):
     """Run ``fn()`` with CUDA's sync debug mode at "error": any call that
     makes the host wait for the device raises."""
@@ -1009,6 +1059,282 @@ def encoder_phase(seed, art, words, dfs, cfg, slot_batches, name, smi,
     return launches
 
 
+class SyntheticWindows:
+    """Window texts of the synthetic index, made on demand from the seed
+    and the window's index and kept: twelve sentences of twelve df-drawn
+    words (the index stores only "window i"; stage 3 and the summarizer
+    read real-length text).  Indexing and ``len`` only, as the engine
+    reads ``window_texts``."""
+
+    def __init__(self, seed, words, dfs, n):
+        self.seed, self.words, self.n = seed, words, n
+        self.cdf = np.cumsum(dfs[1:] / dfs[1:].sum())
+        self.cache = {}
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        text = self.cache.get(i)
+        if text is None:
+            r = np.random.default_rng((self.seed, int(i))).random(144)
+            ids = 1 + np.minimum(np.searchsorted(self.cdf, r),
+                                 len(self.cdf) - 1)
+            ws = [self.words[j] for j in ids]
+            text = " ".join(" ".join(ws[k : k + 12]) + "."
+                            for k in range(0, 144, 12))
+            self.cache[i] = text
+        return text
+
+
+def n_forwards(results, batch_size):
+    """Cross-encoder forwards a batch ran: one per ``batch_size`` rows of
+    each query."""
+    return sum(-(-len(r) // batch_size) for r in results)
+
+
+def check_stage3(ce_cpu, q, rows, what):
+    """One query's stage-3 rows against the port's CPU rescore of the same
+    windows: sigmoid scores to CE_ATOL, and the card's order wherever
+    neighbouring CPU scores differ by more than twice that.  Returns the
+    max abs error."""
+    got = np.array([r.similarity_score for r in rows], np.float32)
+    want = ce_cpu.rescore(q, [r.window_text for r in rows])
+    err = float(np.abs(got - want).max())
+    check(err <= CE_ATOL, f"{what}: card vs cpu rescore max |d| {err}")
+    flips = [i for i in range(len(rows) - 1)
+             if want[i + 1] - want[i] > 2 * CE_ATOL]
+    check(not flips, f"{what}: order against the cpu scores at {flips}")
+    return err
+
+
+def stage3_phase(seed, art, words, dfs, cfg, plain, slot_batches, name, smi):
+    """The cross-encoder stage 3 at full width (``CE_CFG``: 4 layers, 384
+    wide, 6 heads, 50,257 ids, L = 192) with weights drawn from ``seed``:
+      (a) ``rescore`` on the card against the port on the CPU on the 100
+          windows of one query's result and on 32 windows that fill L;
+      (b) ``search_batch`` with ``cross_encoder=`` on the 100k index at
+          B = 1, 16 and 64 (top_k_reranking = 100 rows a query), each
+          batch's launches checked as in phase 5; each query's docs,
+          windows and ``original_similarity`` equal to ``plain``'s (the
+          same index without stage 3); scores in [0, 1], descending, and
+          equal to the CPU rescore of the same windows (one query a batch);
+      (c) p50 and queries/s, forwards a batch, one torch.profiler trace of
+          a B = 1 and a B = 16 batch and one of a 100-window rescore
+          (device operations a forward).
+    Returns (the launch counts of the (b) batches, one query, its rows)."""
+    rng = np.random.default_rng(seed + 3)
+    t_phase = t0 = time.time()
+    tree = init_cross_encoder_params(
+        CE_CFG, lambda s: rng.standard_normal(s, dtype=np.float32))
+    ce = CrossEncoderReranker(CE_CFG, params=tree)
+    ce_cpu = CrossEncoderReranker(CE_CFG, params=tree, device="cpu")
+    del tree
+    art3 = dataclasses.replace(
+        art, window_texts=SyntheticWindows(seed, words, dfs, art.n_chunks))
+    eng = SearchEngine(art3, plain.encoder, cfg, cross_encoder=ce)
+    torch.cuda.synchronize()
+    log(f"stage 3: {CE_CFG}; weights drawn and engine built in "
+        f"{time.time() - t0:.1f} s, batch_size {ce.batch_size}")
+
+    want_bm25 = {"B=1": "bm25_slots", "B=16": "bm25_slots_udedup_sublane",
+                 "B=64": "bm25_slots_udedup_i8"}
+    results, launches = drive(eng, slot_batches, want_bm25, "stage 3",
+                              top_k=None)
+    errs, fwd = {}, {}
+    for key, qs in slot_batches.items():
+        base = plain.search_batch(qs)
+        fwd[key] = n_forwards(results[key], ce.batch_size)
+        for b, (got, want) in enumerate(zip(results[key], base)):
+            before = {r.doc_id: r for r in want}
+            check(set(before) == {r.doc_id for r in got},
+                  f"stage 3 {key} q{b}: another doc set than stage 2")
+            for r in got:
+                w = before[r.doc_id]
+                check(r.window_index == w.window_index and
+                      r.original_similarity == w.original_similarity,
+                      f"stage 3 {key} q{b}: row of doc {r.doc_id} changed")
+                check(0.0 <= r.similarity_score <= 1.0,
+                      f"stage 3 {key} q{b}: score {r.similarity_score}")
+        errs[key] = check_stage3(ce_cpu, qs[0], results[key][0],
+                                 f"stage 3 {key} q0")
+    log(f"  stage 3 == stage 2's docs, windows and original_similarity on "
+        f"every query; card vs cpu rescore of q0's rows, max abs err: "
+        f"{json.dumps(errs)}; forwards a batch: {json.dumps(fwd)}")
+
+    # (a) rescore alone: a stage-2 result's 100 windows, 32 full windows
+    q = slot_batches["B=1"][0]
+    rows = results["B=1"][0]
+    texts = [r.window_text for r in rows]
+    long_texts = [" ".join(art3.window_texts[i] for i in range(j, j + 2))
+                  for j in range(0, 64, 2)]
+    ids, mask = ce._encode_pairs(q, long_texts)
+    check(min(sum(m) for m in mask) == CE_CFG.max_len,
+          "stage 3: the long windows do not fill L")
+    e = {}
+    for label, t in (("100 windows of q0 (B=1)", texts),
+                     ("32 windows filling L", long_texts)):
+        got = ce.rescore(q, t)
+        want = ce_cpu.rescore(q, t)
+        e[label] = float(np.abs(got - want).max())
+        check(e[label] <= CE_ATOL and np.isfinite(got).all(),
+              f"stage 3 rescore {label}: card vs cpu max |d| {e[label]}")
+    log(f"  rescore on the card vs the port on the cpu, max abs err of the "
+        f"sigmoid scores: {json.dumps(e)}")
+    del ce_cpu
+
+    # (c) timings
+    reps = {"B=1": 10, "B=16": 5, "B=64": 3}
+    for key, qs in slot_batches.items():
+        eng.times = StageTimes()
+        ts = []
+        for _ in range(reps[key]):
+            t0 = time.perf_counter()
+            eng.search_batch(qs)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        p50 = float(np.median(ts))
+        host = {k: v["mean_ms"] for k, v in eng.times.report().items()}
+        log(f"  stage 3 search_batch {key}: p50 {p50 * 1e3:.3f} ms over "
+            f"{reps[key]} calls, {len(qs) / p50:.2f} queries/s on {name} "
+            f"({smi}), {fwd[key]} cross-encoder forwards; host stage means "
+            f"(ms, format_diversify holds stage 3): {host}")
+        if key == "B=64":
+            continue
+        prof = profile_call(lambda: eng.search_batch(qs))
+        if prof is None:
+            log(f"    torch.profiler, stage 3 {key}: no device events in "
+                "the trace, device time not measured")
+        else:
+            prof["idle_share_of_p50"] = 1.0 - prof["device_busy_ms"] / (
+                p50 * 1e3)
+            log(f"    torch.profiler, one stage 3 search_batch {key}: "
+                f"{json.dumps(prof)}")
+    prof = profile_call(lambda: ce.rescore(q, texts))
+    n_f = -(-len(texts) // ce.batch_size)
+    b_ms, b_by, _ = encoder_bound(CE_CFG, ce.batch_size, CE_CFG.max_len)
+    if prof is None:
+        log("    torch.profiler, rescore: no device events, not measured")
+    else:
+        log(f"    torch.profiler, one rescore of {len(texts)} windows "
+            f"({n_f} forwards of {ce.batch_size} x {CE_CFG.max_len}): "
+            f"{prof['device_events'] / n_f:.1f} device operations and "
+            f"{prof['device_busy_ms'] / n_f:.4f} device busy ms a forward "
+            f"(bound of a full forward {b_ms:.4f} ms, {b_by}); "
+            f"{json.dumps(prof)}")
+    log(f"  stage 3 phase: {time.time() - t_phase:.1f} s")
+    return launches, q, rows
+
+
+def teacher_forced(model, prompt, toks):
+    """Logits [n, V] f32 at the positions that emitted ``toks``, a decode
+    of ``prompt`` that stayed inside the model's length, from one forward
+    over the prompt and the decode."""
+    L = model.cfg.max_len
+    seq = list(prompt) + list(toks)
+    check(len(seq) <= L, f"teacher forcing: {len(seq)} tokens > {L}")
+    x = np.zeros((3, 1, L), np.int32)
+    x[0, 0, : len(seq)] = seq
+    x[1, 0, : len(seq)] = 1
+    x[2, 0, : len(toks)] = np.arange(len(prompt) - 1, len(seq) - 1)
+    dev = model.tok.device
+    t = torch.from_numpy(x).to(dev)
+    with torch.no_grad():
+        out = model(t[0], t[1], t[2, :, : len(toks)])
+    return out[0].float().cpu().numpy()
+
+
+def decoder_phase(seed, words, query, windows, name, smi):
+    """The summary decoder at full width (``DEC_CFG``: 4 layers, 256 wide,
+    32,000 ids, L = 192) with weights drawn from ``seed`` and a
+    ``WordVocab`` of the synthetic corpus's words, prompted as
+    ``GenerativeSummarizer`` prompts it with ``windows`` (the top-10
+    windows of a stage-3 result):
+      (a) the port's greedy decode on the CPU (48 steps), then its tokens
+          teacher-forced through the card's model and the CPU's: logits at
+          every generated position within DEC_RTOL of their scale;
+      (b) the card's greedy decode equal to the CPU's up to the first step
+          whose CPU top-2 margin is under twice that tolerance, with no
+          host sync inside ``generate_device``;
+      (c) ms a summary (p50 of 5), device busy, operations a step;
+      (d) ``GenerativeSummarizer.generate_summary`` over ``windows``: a
+          non-empty string, from the decode or the extractive fallback."""
+    rng = np.random.default_rng(seed + 4)
+    t_phase = t0 = time.time()
+    tree = init_decoder_params(
+        DEC_CFG, lambda s: rng.standard_normal(s, dtype=np.float32))
+    model = build_decoder(DEC_CFG, tree, resolve_device())
+    cpu_model = build_decoder(DEC_CFG, tree, torch.device("cpu"))
+    del tree
+    vocab = WordVocab.build([" ".join(words)], max_words=DEC_CFG.vocab_size)
+    summ = GenerativeSummarizer(model, vocab)
+    gen, gen_cpu = summ.gen, GreedyGenerator(cpu_model, device="cpu")
+    cut = [w[:4000] for w in windows[:10] if w]
+    prompt = summ.prompt_ids(query, cut)
+    n_new = summ.max_new
+    log(f"decoder: {DEC_CFG}; vocab {len(vocab)} words; weights drawn, on "
+        f"{gen.device} and the cpu in {time.time() - t0:.1f} s; prompt of "
+        f"{len(prompt)} tokens, {n_new} new")
+
+    t0 = time.time()
+    cpu_toks = gen_cpu.generate([prompt], n_new)[0]
+    t_cpu = time.time() - t0
+    want = teacher_forced(cpu_model, prompt, cpu_toks)
+    got = teacher_forced(model, prompt, cpu_toks)
+    tol = DEC_RTOL * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(np.isfinite(got).all() and err <= tol,
+          f"decoder teacher-forced logits: card vs cpu max |d| {err} > {tol}")
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    near = np.nonzero(top2[:, 1] - top2[:, 0] < 2 * tol)[0]
+    first = int(near[0]) if near.size else n_new
+    card = check_sync_free(lambda: gen.generate_device([prompt], n_new),
+                           "generate_device")
+    card = card.cpu().numpy()[0]
+    check(card.shape == cpu_toks.shape and
+          np.array_equal(card[:first], cpu_toks[:first]),
+          f"decoder: card tokens {card[:first]} vs cpu {cpu_toks[:first]} "
+          f"before the first near-tie (step {first})")
+    same = int(np.argmin(card == cpu_toks)) if (card != cpu_toks).any() \
+        else n_new
+    log(f"  teacher-forced logits, card vs cpu: max |d| {err:.6f} (tol "
+        f"{tol:.6f} = 2^-5 of scale {tol / DEC_RTOL:.4f}); first near-tie "
+        f"(cpu top-2 margin < 2 tol) at step {first} of {n_new}; card and "
+        f"cpu tokens equal for the first {same} steps; cpu decode "
+        f"{t_cpu:.2f} s")
+
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        gen.generate([prompt], n_new)
+        ts.append(time.perf_counter() - t0)
+    p50 = float(np.median(ts))
+    prof = profile_call(lambda: gen.generate([prompt], n_new))
+    b_ms, b_by = decode_step_bound(DEC_CFG)
+    log(f"  bound of one decode step: {b_ms:.5f} ms ({b_by})")
+    if prof is None:
+        log(f"  decode on {name} ({smi}): p50 {p50 * 1e3:.3f} ms a summary "
+            f"({n_new} steps); no device events, device time not measured")
+    else:
+        log(f"  decode on {name} ({smi}): p50 {p50 * 1e3:.3f} ms a summary "
+            f"({n_new} steps, {p50 * 1e3 / n_new:.3f} ms a step); "
+            f"{prof['device_events'] / n_new:.1f} device operations and "
+            f"{prof['device_busy_ms'] / n_new:.4f} device busy ms a step; "
+            f"idle share of p50 {1 - prof['device_busy_ms'] / (p50 * 1e3):.4f}"
+            f"; {json.dumps(prof)}")
+
+    decoded = vocab.decode(card).strip()
+    t0 = time.perf_counter()
+    text = summ.generate_summary(query, windows)
+    t_sum = time.perf_counter() - t0
+    check(isinstance(text, str) and text, "generate_summary: empty")
+    log(f"  assistant: generate_summary over the top-10 windows of a stage-3 "
+        f"result in {t_sum * 1e3:.1f} ms, {len(text)} chars from the "
+        f"{'decode' if text == decoded else 'extractive fallback'}: "
+        f"{text[:120]!r}")
+    log(f"  decoder and assistant phase: {time.time() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1132,6 +1458,12 @@ def main(argv=None) -> int:
     # --- the bi-encoder's path ----------------------------------------------
     launches["encoder"] = encoder_phase(args.seed, art, words, dfs, cfg,
                                         slot_batches, name, smi)
+
+    # --- stage 3 and the assistant -----------------------------------------
+    launches["stage 3"], q3, rows3 = stage3_phase(
+        args.seed, art, words, dfs, cfg, eng, slot_batches, name, smi)
+    decoder_phase(args.seed, words, q3, [r.window_text for r in rows3[:10]],
+                  name, smi)
 
     # --- phase 6: small phases ----------------------------------------------
     check_empty_index(cfg, enc)

@@ -2,13 +2,15 @@
 
 The package beside it, ``modern_search_engines_project_tpu``, is the
 reference; this one mirrors its layout (``config.py``, ``text/``,
-``index/``, ``models/``, ``retrieval/``, ``utils/``) so each counterpart is
-found by path, and imports nothing from it.  The ported slice is the
-default online hybrid query, ``retrieval.engine.SearchEngine.search_batch``:
-slot-layout BM25 (three hand-written CUDA kernels) feeding the bucketed
-dense tail (one hand-written CUDA kernel).  The kernel sources live in
-``csrc/``; every kernel has a plain PyTorch version beside its wrapper,
-which is what runs on CPU tensors.
+``index/``, ``models/``, ``retrieval/``, ``serving/``, ``utils/``) so each
+counterpart is found by path, and imports nothing from it.  The main path
+is the online hybrid query, ``retrieval.engine.SearchEngine.search_batch``:
+BM25 (hand-written CUDA kernels on either posting layout) feeding the
+bucketed dense tail (one hand-written CUDA kernel), with the trained
+bi-encoder, the optional cross-encoder stage 3 (``models/``) and the
+search assistant's summarizers (``serving/assistant.py``).  The kernel
+sources live in ``csrc/``; every kernel has a plain PyTorch version beside
+its wrapper, which is what runs on CPU tensors.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,21 @@
 from modern_search_engines_project_tpu_torch.models.checkpoint import (
     latest_step_dir,
     load_encoder,
+    read_checkpoint,
+)
+from modern_search_engines_project_tpu_torch.models.cross_encoder import (
+    CrossEncoder,
+    CrossEncoderReranker,
+    cross_encoder_params_from_reference,
+    init_cross_encoder_params,
+)
+from modern_search_engines_project_tpu_torch.models.decoder import (
+    DecoderConfig,
+    DecoderLM,
+    GreedyGenerator,
+    decoder_params_from_reference,
+    init_decoder_params,
+    load_decoder,
 )
 from modern_search_engines_project_tpu_torch.models.encoder import (
     BiEncoder,
@@ -11,15 +26,28 @@ from modern_search_engines_project_tpu_torch.models.encoder import (
     params_from_reference,
 )
 from modern_search_engines_project_tpu_torch.models.hash_encoder import HashingEncoder
+from modern_search_engines_project_tpu_torch.models.word_vocab import WordVocab
 
 __all__ = [
     "BiEncoder",
+    "CrossEncoder",
+    "CrossEncoderReranker",
+    "DecoderConfig",
+    "DecoderLM",
     "EncoderConfig",
+    "GreedyGenerator",
     "HashingEncoder",
     "TorchEncoder",
+    "WordVocab",
+    "cross_encoder_params_from_reference",
+    "decoder_params_from_reference",
+    "init_cross_encoder_params",
+    "init_decoder_params",
     "init_reference_params",
     "latest_step_dir",
+    "load_decoder",
     "load_encoder",
     "params_digest",
     "params_from_reference",
+    "read_checkpoint",
 ]

@@ -1,18 +1,21 @@
-"""Encoder checkpoints: read ``config.json`` and ``params.msgpack``.
+"""Checkpoints: read ``config.json`` and ``params.msgpack``.
 
 Counterpart of the reference package's ``models/checkpoint.py``
-(``load_encoder``, ``latest_step_dir``).  A checkpoint directory holds the
-encoder's config as JSON and its parameter tree as msgpack bytes, in the
-form the reference's serializer writes: nested maps of str keys whose
-leaves are arrays packed as msgpack ext type 1 (an inner msgpack array of
-shape, dtype name and raw C-order bytes), numpy scalars as ext type 3,
-and arrays over 2^30 bytes split into ``__msgpack_chunked_array__`` maps.
+(``load_encoder``, ``latest_step_dir``) and of the readers in its
+``models/cross_encoder.py`` and ``models/decoder.py``, which use the same
+form.  A checkpoint directory holds the model's config as JSON and its
+parameter tree as msgpack bytes, in the form the reference's serializer
+writes: nested maps of str keys whose leaves are arrays packed as msgpack
+ext type 1 (an inner msgpack array of shape, dtype name and raw C-order
+bytes), numpy scalars as ext type 3, and arrays over 2^30 bytes split
+into ``__msgpack_chunked_array__`` maps.
 
 The reader here is pure Python over a ``memoryview`` of the file: array
 leaves are numpy views of the file's bytes (no copy), and half-precision
 leaves are restored to f32, as the reference restores them.  It needs
 neither the reference's serializer nor the ``msgpack`` package.
-Writing checkpoints (``save_encoder``) waits for training.
+Writing checkpoints (``save_encoder``, ``save_decoder``) waits for
+training.
 """
 
 from __future__ import annotations
@@ -141,14 +144,21 @@ def _f16_to_f32(tree):
     return tree
 
 
-def load_encoder(path: str) -> Tuple[dict, EncoderConfig]:
-    """(parameter tree, config) of the checkpoint in ``path``; f16 leaves
-    come back as f32, every other leaf as stored."""
+def read_checkpoint(path: str) -> Tuple[dict, dict]:
+    """(parameter tree, config dict) of the checkpoint in ``path``; f16
+    leaves come back as f32, every other leaf as stored.  Encoder,
+    cross-encoder and decoder checkpoints share this form."""
     with open(os.path.join(path, "config.json")) as f:
-        enc_cfg = EncoderConfig(**json.load(f))
+        conf = json.load(f)
     with open(os.path.join(path, "params.msgpack"), "rb") as f:
         blob = f.read()
-    return _f16_to_f32(restore(blob)), enc_cfg
+    return _f16_to_f32(restore(blob)), conf
+
+
+def load_encoder(path: str) -> Tuple[dict, EncoderConfig]:
+    """(parameter tree, config) of the encoder checkpoint in ``path``."""
+    tree, conf = read_checkpoint(path)
+    return tree, EncoderConfig(**conf)
 
 
 def latest_step_dir(root: str) -> Optional[str]:

@@ -21,6 +21,11 @@ parameters give the same embeddings to bf16 rounding:
 Products run through ``torch.matmul``; this module holds no hand-written
 kernel (the reference's products are XLA einsums, not Pallas kernels).
 
+``Attention`` and ``Block`` take a ``causal`` flag, which the decoder's
+blocks set (``models/decoder.py``, the reference's ``CausalAttention``);
+the cross-encoder (``models/cross_encoder.py``) reuses the blocks as
+they are.
+
 ``TorchEncoder`` is the ``encode_batch`` protocol over ``BiEncoder``, a
 drop-in for ``HashingEncoder`` in ``IndexBuilder`` and ``SearchEngine``,
 with ``encode_batch_device`` for the engine's device route.  Parameters
@@ -106,12 +111,26 @@ class LayerNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: EncoderConfig, device=None):
+    """Multi-head self-attention over the keys ``mask`` keeps; with
+    ``causal`` (the decoder's), a query also sees no later key: the
+    reference's ``tril & mask[key]``, masked with -1e30 as the padding
+    is.  ``cfg`` is any config with ``dim``, ``n_heads``, ``max_len`` and
+    ``dtype``."""
+
+    def __init__(self, cfg: EncoderConfig, device=None, causal: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         self.qkv = _weight((cfg.dim, 3 * cfg.dim), self.dtype, device)
         self.proj = _weight((cfg.dim, cfg.dim), self.dtype, device)
+        self.causal = causal
+        if causal:
+            self.register_buffer(
+                "tril",
+                torch.ones(cfg.max_len, cfg.max_len, dtype=torch.bool,
+                           device=device).tril(),
+                persistent=False,
+            )
 
     def forward(self, x, mask, rope):
         c = self.cfg
@@ -124,7 +143,10 @@ class Attention(nn.Module):
         # f32 outputs of bf16 products: the inputs are exact in f32
         att = torch.matmul(q.float().transpose(1, 2),
                            k.float().permute(0, 2, 3, 1)) / math.sqrt(hd)
-        att = att.masked_fill(~mask[:, None, None, :], -1e30)
+        keep = mask[:, None, None, :]
+        if self.causal:
+            keep = keep & self.tril[:L, :L]
+        att = att.masked_fill(~keep, -1e30)
         att = torch.softmax(att, dim=-1).to(self.dtype)
         out = torch.matmul(att.float(), v.float().transpose(1, 2))
         out = out.to(self.dtype).transpose(1, 2).reshape(B, L, c.dim)
@@ -146,11 +168,13 @@ class GeGLU(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: EncoderConfig, device=None):
+    """Pre-LayerNorm block; ``causal`` makes it the decoder's block."""
+
+    def __init__(self, cfg: EncoderConfig, device=None, causal: bool = False):
         super().__init__()
         dt = getattr(torch, cfg.dtype)
         self.ln1 = LayerNorm(cfg.dim, dt, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, causal)
         self.ln2 = LayerNorm(cfg.dim, dt, device)
         self.mlp = GeGLU(cfg, device)
 

@@ -7,8 +7,9 @@ the blocked kernels (``bm25_layout="blocked"``, and every index without
 chunk buckets), the bucketed dense tail with the stats kernel (or, without
 buckets, the packed-bank tail), and host-side dedup, domain
 diversification and result formatting over the (at most)
-``top_k_retrieval`` candidates.  ``bm25_search`` and ``dense_search`` run
-one stage alone.
+``top_k_retrieval`` candidates, and the optional stage 3 (a
+cross-encoder rescoring each query's final rows).  ``bm25_search`` and
+``dense_search`` run one stage alone.
 
 Runs on the card unless the caller passes ``device="cpu"``, where every
 kernel wrapper takes its plain PyTorch version.
@@ -16,6 +17,7 @@ kernel wrapper takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import dataclasses
 from collections import Counter
 from typing import List, Optional, Sequence
 
@@ -61,10 +63,13 @@ class SearchEngine:
         bank_dtype: Optional[torch.dtype] = None,
         analyzer: Optional[Analyzer] = None,
         device=None,
+        cross_encoder=None,
     ):
         """``device``: "cuda" (default) or "cpu"; with no card and no
         ``device="cpu"`` this raises.  ``bank_dtype`` defaults to bf16 on
-        the card and f32 on the CPU."""
+        the card and f32 on the CPU.  ``cross_encoder``: the optional stage
+        3, anything with ``rescore(query, texts) -> float32 [n]``
+        (``models.cross_encoder.CrossEncoderReranker``)."""
         self.art = artifacts
         self.cfg = config or artifacts.config
         self.encoder = encoder
@@ -77,6 +82,7 @@ class SearchEngine:
         self.k_ret = min(self.cfg.top_k_retrieval, self.didx.n_docs_pad)
         self._approx = resolve_approx(self.cfg, self.didx.n_docs_pad)
         self.times = StageTimes()
+        self.cross_encoder = cross_encoder
         # results come back in the bucketed (permuted) doc order; an index
         # without buckets keeps the artifact order (doc_perm None)
         self._result_perm = self.didx.doc_perm
@@ -278,14 +284,17 @@ class SearchEngine:
         top_k: Optional[int] = None,
     ) -> List[List[RankedDoc]]:
         """Host half of ``search_batch``: dedup + diversification over the
-        candidate pool, RankedDoc rows for the top-k."""
+        candidate pool, RankedDoc rows for the top-k.  With a cross-encoder
+        (stage 3), each query's rows are rescored jointly with the query
+        and stably reordered by that score, which replaces
+        ``similarity_score`` (``original_similarity`` stays)."""
         top_k = top_k or self.cfg.top_k_reranking
         n_wins = len(self.art.window_texts)
         out: List[List[RankedDoc]] = []
         with stage_timer("format_diversify", self.times):
-            for d_sel, sc, o_sel, w_sel in self._finish_rows(
+            for b, (d_sel, sc, o_sel, w_sel) in enumerate(self._finish_rows(
                 raw, len(queries), top_k
-            ):
+            )):
                 ranked: List[RankedDoc] = []
                 for d, s, o, w in zip(
                     d_sel.tolist(), sc.tolist(), o_sel.tolist(),
@@ -303,6 +312,17 @@ class SearchEngine:
                             window_text=self.art.window_texts[w] if w_ok else "",
                             domain=self.art.domains[d],
                         )
+                    )
+                if self.cross_encoder is not None and ranked:
+                    ce = self.cross_encoder.rescore(
+                        queries[b], [r.window_text for r in ranked]
+                    )
+                    ranked = sorted(  # stable: ties keep stage 2's order
+                        (
+                            dataclasses.replace(r, similarity_score=float(x))
+                            for r, x in zip(ranked, ce)
+                        ),
+                        key=lambda r: -r.similarity_score,
                     )
                 out.append(ranked)
         return out

@@ -25,11 +25,17 @@ import torch
 from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import Document, IndexBuilder
 from modern_search_engines_project_tpu_torch.models import (
+    CrossEncoderReranker,
+    DecoderConfig,
     EncoderConfig,
+    GreedyGenerator,
     HashingEncoder,
     TorchEncoder,
+    init_cross_encoder_params,
+    init_decoder_params,
     init_reference_params,
 )
+from modern_search_engines_project_tpu_torch.models.decoder import build_decoder
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     BLOCKED_KERNEL,
@@ -977,3 +983,152 @@ def test_engine_with_encoder_on_card_matches_cpu(cuda):
         _same_results(got, want)
         assert any(len(r) for r in got)
         _same_results(gpu.search_batch(qs, top_k=10), got)
+
+
+# ---- stage 3 and the summary decoder on the card ----------------------------
+
+CE_ATOL = 5e-3  # sigmoid scores, card against the CPU port (bf16 rounding)
+DEC_RTOL = 2.0 ** -5  # decoder logits, of their scale
+
+
+def _sentences(seed, n, n_words=150):
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{j}" for j in rng.integers(0, 5000, n_words))
+            for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def ce_full(cuda):
+    """``runs/cross-encoder-real``'s configuration (4 layers, 384 wide,
+    L = 192) with weights drawn from a numpy seed, on the card and on the
+    CPU."""
+    cfg = EncoderConfig(dim=384, n_layers=4, n_heads=6, max_len=192)
+    rng = np.random.default_rng(0)
+    tree = init_cross_encoder_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    return (CrossEncoderReranker(cfg, params=tree),
+            CrossEncoderReranker(cfg, params=tree, device="cpu"))
+
+
+@pytest.mark.parametrize("n,n_words", [(1, 3), (33, 150), (100, 40)])
+def test_rescore_on_card_matches_cpu(ce_full, n, n_words):
+    card, cpu = ce_full
+    texts = _sentences(n, n, n_words)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # one upload and one forward per chunk, no host sync
+        dev = card.rescore_device("w1 w2 castle", texts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dev.device.type == "cuda" and dev.shape == (n,)
+    got = dev.cpu().numpy()
+    want = cpu.rescore("w1 w2 castle", texts)
+    assert np.abs(got - want).max() <= CE_ATOL
+    np.testing.assert_array_equal(card.rescore("w1 w2 castle", texts), got)
+
+
+def test_engine_stage3_on_card_matches_cpu(cuda):
+    """search_batch with a cross-encoder on the card against the CPU
+    engine with the same cross-encoder weights."""
+    docs, words = _docs(5, n=120)
+    cfg = Config(embedding_dim=64, window_size=64, step_size=50,
+                 top_k_retrieval=200, top_k_reranking=40)
+    enc = HashingEncoder(dim=64)
+    art = IndexBuilder(enc, cfg).build(docs)
+    ce_cfg = EncoderConfig(vocab_size=8192, dim=64, n_layers=2, n_heads=4,
+                           mlp_ratio=2, max_len=64)
+    gpu = SearchEngine(art, enc, cfg, cross_encoder=CrossEncoderReranker(
+        ce_cfg, seed=2, batch_size=16))
+    cpu = SearchEngine(art, enc, cfg, bank_dtype=torch.bfloat16,
+                       device="cpu", cross_encoder=CrossEncoderReranker(
+                           ce_cfg, seed=2, batch_size=16, device="cpu"))
+    rng = np.random.default_rng(6)
+    qs = [" ".join(rng.choice(words, 3)) for _ in range(16)]
+    got, want = gpu.search_batch(qs), cpu.search_batch(qs)
+    for g, w in zip(got, want):
+        assert {r.doc_id for r in g} == {r.doc_id for r in w}
+        by_id = {r.doc_id: r.similarity_score for r in w}
+        scores = [r.similarity_score for r in g]
+        assert scores == sorted(scores, reverse=True)
+        assert all(abs(r.similarity_score - by_id[r.doc_id]) <= CE_ATOL
+                   for r in g)
+    assert any(len(r) > 16 for r in got)  # more than one forward a query
+
+
+def _teacher_forced(model, prompt, toks):
+    L = model.cfg.max_len
+    seq = list(prompt) + list(toks)
+    ids = np.zeros((1, L), np.int32)
+    ids[0, : len(seq)] = seq
+    mask = (np.arange(L)[None] < len(seq)).astype(np.int32)
+    pos = np.arange(len(prompt) - 1, len(seq) - 1, dtype=np.int32)[None]
+    dev = model.tok.device
+    with torch.no_grad():
+        out = model(*(torch.from_numpy(a).to(dev) for a in (ids, mask, pos)))
+    return out[0].float().cpu().numpy()
+
+
+@pytest.mark.parametrize("cfg_kw,n_prompt", [
+    ({}, 140),  # runs/summarizer-real's configuration, full width
+    (dict(vocab_size=16, dim=64, n_layers=2, n_heads=4, max_len=48), 10),
+])
+def test_decode_on_card_teacher_forced(cuda, cfg_kw, n_prompt):
+    """The CPU port's greedy tokens through the card's model: logits at
+    every generated position within 2^-5 of their scale; the card's own
+    decode equal to the CPU's up to the first step whose top-2 margin is
+    under twice that, with no host sync inside ``generate_device``."""
+    cfg = DecoderConfig(**cfg_kw)
+    rng = np.random.default_rng(9)
+    tree = init_decoder_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    card = GreedyGenerator(build_decoder(cfg, tree, cuda))
+    cpu = GreedyGenerator(build_decoder(cfg, tree, "cpu"), device="cpu")
+    prompt = [1] + rng.integers(5, cfg.vocab_size, n_prompt).tolist() + [2]
+    n_new = min(48, cfg.max_len - len(prompt))
+    want_toks = cpu.generate([prompt], n_new)[0]
+    want = _teacher_forced(cpu.model, prompt, want_toks)
+    got = _teacher_forced(card.model, prompt, want_toks)
+    tol = DEC_RTOL * float(np.abs(want).max())
+    assert np.abs(got - want).max() <= tol
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    near = np.nonzero(top2[:, 1] - top2[:, 0] < 2 * tol)[0]
+    first = int(near[0]) if near.size else n_new
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = card.generate_device([prompt], n_new)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    toks = toks.cpu().numpy()[0]
+    np.testing.assert_array_equal(toks[:first], want_toks[:first])
+
+
+def test_decode_on_card_past_the_last_position(cuda):
+    """max_new beyond L: each prompt is cut to len - (max_new - L), the
+    decode writes until pos reaches L, and later steps emit with ids, mask
+    and pos frozen, so they repeat one token.  The in-range steps of row 0
+    are held as above (teacher forcing, tokens up to the first near-tie);
+    row 1's prompt is cut to nothing."""
+    cfg = DecoderConfig(vocab_size=16, dim=64, n_layers=2, n_heads=4,
+                        max_len=32)
+    rng = np.random.default_rng(10)
+    tree = init_decoder_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    card = GreedyGenerator(build_decoder(cfg, tree, cuda))
+    cpu = GreedyGenerator(build_decoder(cfg, tree, "cpu"), device="cpu")
+    prompts = [[1] + rng.integers(5, 16, 29).tolist() + [2], [1, 7, 2]]
+    got = card.generate(prompts, max_new=40)
+    want = cpu.generate(prompts, max_new=40)
+    assert got.shape == want.shape == (2, 40) and got.dtype == np.int32
+    for toks in (got, want):  # pos reaches L after steps 9 and 32
+        assert (toks[0, 9:] == toks[0, 9]).all()
+        assert (toks[1, 32:] == toks[1, 32]).all()
+    kept = prompts[0][:-8]
+    tf_cpu = _teacher_forced(cpu.model, kept, want[0, :9])
+    tf_card = _teacher_forced(card.model, kept, want[0, :9])
+    tol = DEC_RTOL * float(np.abs(tf_cpu).max())
+    assert np.abs(tf_card - tf_cpu).max() <= tol
+    top2 = np.sort(tf_cpu, axis=-1)[:, -2:]
+    near = np.nonzero(top2[:, 1] - top2[:, 0] < 2 * tol)[0]
+    first = int(near[0]) if near.size else 9
+    np.testing.assert_array_equal(got[0, :first], want[0, :first])

@@ -21,6 +21,9 @@ FORBIDDEN = re.compile(
     r"\bjax\b|\bflax\b|modern_search_engines_project_tpu\.|"
     r"from\s+modern_search_engines_project_tpu\s+import"
 )
+# neither the msgpack package nor an HTTP client outside the standard
+# library (the checkpoint reader and the assistant's client do without)
+FORBIDDEN_IMPORTS = re.compile(r"^\s*(import|from)\s+(msgpack|httpx)\b")
 
 
 def test_port_searches_with_jax_blocked():
@@ -106,9 +109,81 @@ def test_source_names_neither_jax_nor_reference_package(path):
     hits = [
         f"{i}: {line}"
         for i, line in enumerate(path.read_text().splitlines(), 1)
-        if FORBIDDEN.search(line)
+        if FORBIDDEN.search(line) or FORBIDDEN_IMPORTS.search(line)
     ]
     assert not hits, hits
+
+
+def test_stage3_and_assistant_run_with_jax_flax_msgpack_httpx_blocked():
+    """The cross-encoder, the decoder, the word vocabulary and the
+    assistant import and run on the CPU with none of jax, flax, msgpack
+    and httpx importable: a seeded stage 3 through the engine, a greedy
+    decode, and the committed summarizer checkpoint's summary."""
+    code = textwrap.dedent(
+        """
+        import sys
+        for m in ("jax", "flax", "msgpack", "httpx"):
+            sys.modules[m] = None  # any import of these now fails
+        import numpy as np
+        from modern_search_engines_project_tpu_torch.config import Config
+        from modern_search_engines_project_tpu_torch.index import (
+            Document, IndexBuilder)
+        from modern_search_engines_project_tpu_torch.models import (
+            CrossEncoderReranker, DecoderConfig, EncoderConfig,
+            GreedyGenerator, HashingEncoder, WordVocab)
+        from modern_search_engines_project_tpu_torch.models import (
+            cross_encoder, decoder, word_vocab)  # noqa: F401
+        from modern_search_engines_project_tpu_torch.retrieval import SearchEngine
+        from modern_search_engines_project_tpu_torch.serving import (
+            ExtractiveSummarizer, GenerativeSummarizer, HttpLlmClient)
+        from modern_search_engines_project_tpu_torch.serving import assistant  # noqa: F401
+        abc = "abcdefghijklmnopqrstuvwxyz"
+        words = [f"w{a}{b}q" for a in abc for b in abc]
+        texts = [" ".join(words[(i * 13 + j * 29) % 676] for j in range(8))
+                 for i in range(40)]
+        docs = [Document(i, f"https://www.s{i % 5}.de/{i}", f"t{i}", t)
+                for i, t in enumerate(texts)]
+        cfg = Config(embedding_dim=32, window_size=32, step_size=25,
+                     top_k_retrieval=20, top_k_reranking=5)
+        enc = HashingEncoder(dim=32)
+        art = IndexBuilder(enc, cfg).build(docs)
+        ce = CrossEncoderReranker(
+            EncoderConfig(vocab_size=512, dim=32, n_layers=1, n_heads=2,
+                          mlp_ratio=2, max_len=32), batch_size=4,
+            device="cpu")
+        eng = SearchEngine(art, enc, cfg, device="cpu", cross_encoder=ce)
+        res = eng.search_batch([texts[3][:10], texts[7]], top_k=5)
+        assert all(len(r) > 0 for r in res), res
+        assert all(0 <= x.similarity_score <= 1 for r in res for x in r)
+        vocab = WordVocab.build(texts)
+        dcfg = DecoderConfig(vocab_size=len(vocab), dim=32, n_layers=1,
+                             n_heads=2, max_len=24)
+        rng = np.random.default_rng(0)
+        tree = decoder.init_decoder_params(
+            dcfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+        model = decoder.build_decoder(dcfg, tree, "cpu")
+        toks = GreedyGenerator(model, device="cpu").generate([[1, 5, 2]], 6)
+        assert toks.shape == (1, 6), toks.shape
+        s = GenerativeSummarizer.from_checkpoint(  # a short decode
+            "runs/summarizer-real", device="cpu", max_new=4)
+        out = s.generate_summary("tübingen castle", [
+            "Hohentübingen Castle overlooks the old town and the Neckar "
+            "river. Today it houses the museum of the university."])
+        assert isinstance(out, str) and out, out
+        assert ExtractiveSummarizer().generate_summary("q", []) == ""
+        assert HttpLlmClient("http://127.0.0.1:9/x").timeout == 30.0
+        loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
+                  or m.startswith("modern_search_engines_project_tpu.")]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_kernels_are_plain_c_builds():
