@@ -63,6 +63,20 @@ non-zero exit):
      decoder's greedy decode on the card against the CPU's by teacher
      forcing, free of host syncs, with ms a summary; and
      GenerativeSummarizer.generate_summary over a stage-3 result;
+  5d. the serving surface on the slot engine: the C++ data plane
+     (serve_fastpath, pipeline 2) on 16 single queries against
+     search_batch_indices and search_batch, then 4,000 requests over 64
+     connections from a separate process (launches against its device
+     batches, q/s and p50/p95/p99); the asyncio control plane
+     (SearchService) on 16 sequential /api/search (the data plane's
+     docs), 64 clients x 8 requests (coalescing > 1), /api/health,
+     /api/stats, /api/rerank, /api/batch_search and /api/profile (a
+     trace holding CUDA kernel events); bank_dtype="int8" at B = 1, 16,
+     64 (kernel 4 never launched, top-10 near the bf16 engine's and equal
+     to the CPU port's int8 engine); and the serving CLI booted as a
+     subprocess on a saved 10,000-doc cut with --int8-bank and
+     --fastpath-port (both planes the same docs, exit 0 or -15 on
+     SIGTERM);
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
      slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
@@ -75,8 +89,14 @@ non-zero exit):
 from __future__ import annotations
 
 import argparse
+import collections
+import copy
 import dataclasses
+import http.client
 import json
+import os
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -87,7 +107,11 @@ import torch
 
 from modern_search_engines_project_tpu_torch import bench_kernels
 from modern_search_engines_project_tpu_torch.config import Config
-from modern_search_engines_project_tpu_torch.index import Document, IndexBuilder
+from modern_search_engines_project_tpu_torch.index import (
+    Document,
+    IndexBuilder,
+    save_artifacts,
+)
 from modern_search_engines_project_tpu_torch.kernel_times import device_ms
 from modern_search_engines_project_tpu_torch.models import (
     CrossEncoderReranker,
@@ -141,7 +165,17 @@ from modern_search_engines_project_tpu_torch.retrieval.numpy_ref import (
     hybrid_search_numpy,
     preprocess_query,
 )
-from modern_search_engines_project_tpu_torch.serving import GenerativeSummarizer
+from modern_search_engines_project_tpu_torch.serving import (
+    GenerativeSummarizer,
+    SearchService,
+)
+from modern_search_engines_project_tpu_torch.serving.fastpath import (
+    attach_stub,
+    build_fragments,
+    make_server,
+    serve_fastpath,
+)
+from modern_search_engines_project_tpu_torch.serving.http import ServerThread
 from modern_search_engines_project_tpu_torch.synthetic import (
     make_artifacts,
     query_strings,
@@ -263,10 +297,56 @@ def wide_mma_count(stream, uids, B: int, variant: str) -> int:
     return int(torch.unique(key).numel()) * -(-B // 16)
 
 
+class SpmmYardstick:
+    """The BM25 rows' library call, a yardstick timed here and used nowhere
+    in the port: one ``torch.sparse.mm`` (cuSPARSE SpMM) of the [docs, V]
+    CSR impact matrix (from the index's ``indptr``, ``post_docs`` and
+    ``post_impact``) by the dense [V, B] query-weight matrix, which gives
+    every doc's BM25 score (without the kernels' keys)."""
+
+    def __init__(self, art, dev):
+        V, D = art.n_terms, art.n_docs
+        term = np.repeat(np.arange(V, dtype=np.int64), np.diff(art.indptr))
+        docs = np.asarray(art.post_docs, np.int64)
+        order = np.lexsort((term, docs))  # doc-major, terms ascending
+        crow = np.zeros(D + 1, np.int64)
+        np.cumsum(np.bincount(docs, minlength=D), out=crow[1:])
+        with warnings.catch_warnings():  # "beta state", invariant checks
+            warnings.simplefilter("ignore")
+            self.csr = torch.sparse_csr_tensor(
+                torch.as_tensor(crow), torch.as_tensor(term[order]),
+                torch.as_tensor(np.asarray(art.post_impact)[order]),
+                size=(D, V), dtype=torch.float32, device=dev)
+        self.V, self.dev = V, dev
+
+    def ms(self, ids, w):
+        """Device ms of the product for queries given as term ids [B, T]
+        with weights [B, T] (pads -1), or distinct ids [U] with weights
+        [2B, U] (the U-dedup form; rows B..2B are presence)."""
+        ids = torch.as_tensor(ids, device=self.dev).long()
+        w = torch.as_tensor(w, device=self.dev)
+        if ids.dim() == 1:  # U-dedup: w[:B] weights, w[B:] presence
+            B = w.shape[0] // 2
+            ids, w = ids[None, :].expand(B, -1), w[:B]
+        B = ids.shape[0]
+        W = torch.zeros(self.V, B, device=self.dev)
+        ok = ids >= 0
+        cols = torch.arange(B, device=self.dev)[:, None].expand_as(ids)
+        W.index_put_((ids[ok], cols[ok]), w[ok].float(), accumulate=True)
+        try:
+            return device_ms(lambda: torch.sparse.mm(self.csr, W), 20)
+        except RuntimeError:  # the call waited on the host: time it so
+            log("  torch.sparse.mm synchronised with the host; its time "
+                "includes the host's enqueue")
+            return cuda_ms(lambda: torch.sparse.mm(self.csr, W), 20)
+
+
 def check_kernels(eng, dfs, rng):
-    """Phase 4: each kernel against its plain version on the same tensors."""
+    """Phase 4: each kernel against its plain version on the same tensors;
+    the BM25 rows also beside their library call (``SpmmYardstick``)."""
     d = eng.didx
     dev = eng.device
+    spmm = SpmmYardstick(eng.art, dev)
     st = d.slot_stream
     views = (d.slot_terms, d.slot_impact)
     # What the scoring function must move: every slot's term id (pad slots
@@ -295,15 +375,18 @@ def check_kernels(eng, dfs, rng):
         err1 = max(err1, e)
         ms = device_ms(lambda: slots_keyed(st, *views, t, q), 20)
         pms = cuda_ms(lambda: slots_plain(*views, t, q), 3, 1)
+        lms = spmm.ms(tids, qtf)
         matched = matched_postings(t)
         nb = table_bytes + matched * 4 + tids.nbytes + qtf.nbytes
         nb += got.numel() * 4
         b_ms, b_by = bound(nb, n_real * B * (8 + 2), F32_OPS)
         log(f"  bm25_slots B={B} T=8: err {e:.2e} kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; {matched} of "
+            f"plain {pms:.4f} ms library (torch.sparse.mm) {lms:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by}; {matched} of "
             f"{n_real} postings matched)")
         if B == 1:  # the engine's plain-kernel branch serves B < 8
-            k1 = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+            k1 = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lms)
     rows["bm25_slots"] = dict(k1, max_abs_err=err1)
 
     # kernels 2 and 3 (id lookup), 5 and 6 (tensor-core products): U = 128
@@ -340,6 +423,7 @@ def check_kernels(eng, dfs, rng):
             pms = cuda_ms(
                 lambda: slots_udedup_plain(*views, u, wt, variant), 3, 1
             )
+            lms = spmm.ms(uids, w)
             matched = matched_postings(u)
             nb = table_bytes + matched * 4 + uids.nbytes + w.nbytes
             nb += got.numel() * 4
@@ -365,14 +449,16 @@ def check_kernels(eng, dfs, rng):
                            f"mma.sync, {n_mma * 2 * 16 * 8 * k:.3e} "
                            f"operations (host count)")
             log(f"  {kern.name} B={B} U={u.numel()}: err {e:.2e} kernel "
-                f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
+                f"{ms:.4f} ms plain {pms:.4f} ms library (torch.sparse.mm) "
+                f"{lms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
                 f"{matched} of {n_real} postings matched){log_ops}")
             if by_df:
                 by_batch[f"B={B} U={u.numel()}"] = dict(
-                    ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, **extra)
+                    ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lms, **extra)
             if B == main_b and by_df:
                 main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                            **extra)
+                            library_ms=lms, **extra)
         rows[kern.name] = dict(main, max_abs_err=err, by_batch=by_batch)
 
     # kernel 4: every bucket, B in {1, 16, 64}
@@ -514,6 +600,7 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
     d = eng_b.didx
     blk = d.blocked
     dev = eng_b.device
+    spmm = SpmmYardstick(eng_b.art, dev)
     # What the scoring function must move: the 4-byte term id of every real
     # posting (a row's pads, from doc_off[i, 128] on, are never read), the
     # per-row doc offsets (129 int32 a row, in place of a local id per
@@ -538,6 +625,7 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
         err = max(err, e)
         ms = device_ms(lambda: bm25_score_blocked(blk, t, q), 20)
         pms = cuda_ms(lambda: blocked_plain(blk, t, q), 3, 1)
+        lms = spmm.ms(tids, qtf)
         matched = matched_postings(t)
         nb = base_bytes + matched * 4 + tids.nbytes + qtf.nbytes
         nb += got.numel() * 4
@@ -548,7 +636,8 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
         b_ms, b_by = bound(nb, n_real + matched * 2 * B, F32_OPS)
         old_ms, old_by = bound(nb, n_real * B * (8 + 2), F32_OPS)
         log(f"  bm25_blocked B={B} T=8: err {e:.2e} kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}); compare-count "
+            f"plain {pms:.4f} ms library (torch.sparse.mm) {lms:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by}); compare-count "
             f"bound {old_ms:.4f} ms ({old_by}); {matched} of {n_real} "
             "postings matched")
         if B == 16:
@@ -561,7 +650,8 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
             log("  bm25_blocked == bm25_slots at B=16 in artifact doc "
                 "order, bit for bit")
         by_batch[f"B={B}"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                                  bound_by=b_by, bound_old_ms=old_ms)
+                                  bound_by=b_by, bound_old_ms=old_ms,
+                                  library_ms=lms)
     # the engine's kernel-7 branch: every B = 1 batch
     rows["bm25_blocked"] = dict(by_batch["B=1"], max_abs_err=err,
                                 by_batch=by_batch)
@@ -580,12 +670,14 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
         err = max(err, e)
         ms = device_ms(lambda: bm25_score_blocked_udedup(blk, u, wt), 20)
         pms = cuda_ms(lambda: blocked_udedup_plain(blk, u, wt), 3, 1)
+        lms = spmm.ms(uids, w)
         matched = matched_postings(u)
         nb = base_bytes + matched * 4 + uids.nbytes + w.nbytes
         nb += got.numel() * 4
         b_ms, b_by = bound(nb, n_real + matched * 2 * B, F32_OPS)
         log(f"  bm25_blocked_udedup B={B} U={u.numel()}: err {e:.2e} kernel "
-            f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
+            f"{ms:.4f} ms plain {pms:.4f} ms library (torch.sparse.mm) "
+            f"{lms:.4f} ms bound {b_ms:.4f} ms ({b_by}; "
             f"{matched} of {n_real} postings matched)")
         if B == 64:
             # kernel 8 sums each doc's matched bf16(w) * impact in posting
@@ -602,9 +694,10 @@ def check_blocked_kernels(eng_b, eng_s, dfs, rng):
             log(f"  bm25_blocked_udedup == bm25_slots_udedup_sublane at B=64 "
                 f"U={u.numel()} in artifact doc order, bit for bit")
         by_batch[f"B={B}{' shared' if pool else ''} U={u.numel()}"] = dict(
-            ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+            ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms)
         if pool:  # the engine's kernel-8 branch: B = 64 sharing terms
-            main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+            main = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lms)
     rows["bm25_blocked_udedup"] = dict(main, max_abs_err=err, by_batch=by_batch)
     return rows
 
@@ -1080,7 +1173,7 @@ class SyntheticWindows:
             r = np.random.default_rng((self.seed, int(i))).random(144)
             ids = 1 + np.minimum(np.searchsorted(self.cdf, r),
                                  len(self.cdf) - 1)
-            ws = [self.words[j] for j in ids]
+            ws = [self.words[j] for j in ids.tolist()]
             text = " ".join(" ".join(ws[k : k + 12]) + "."
                             for k in range(0, 144, 12))
             self.cache[i] = text
@@ -1335,6 +1428,476 @@ def decoder_phase(seed, words, query, windows, name, smi):
     log(f"  decoder and assistant phase: {time.time() - t_phase:.1f} s")
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The CLI's saved index: the first 10,000 docs of the 100k corpus (the save,
+# the subprocess's load and its warmup stay within seconds).
+SERVE_CUT_DOCS = 10_000
+# The control plane's load: 64 clients, 8 requests each, over the same 256
+# distinct queries as the data plane's 4,000.
+CP_CLIENT = """
+import http.client, json, sys, threading, time
+port, n_clients, per, bodies = json.loads(sys.argv[1])
+lat, errs = [], []
+def run(i):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    for j in range(per):
+        t0 = time.perf_counter()
+        try:
+            c.request("POST", "/api/search", bodies[(i * per + j) % len(bodies)],
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            r.read()
+            if r.status != 200:
+                errs.append(r.status)
+        except Exception as e:
+            errs.append(repr(e))
+        lat.append(time.perf_counter() - t0)
+    c.close()
+t0 = time.perf_counter()
+ts = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join()
+wall = time.perf_counter() - t0
+lat.sort()
+pct = lambda q: lat[int(q * (len(lat) - 1))] * 1e3
+print(json.dumps({"requests": len(lat), "errors": len(errs), "wall_s": wall,
+                  "qps": len(lat) / wall, "p50_ms": pct(0.5),
+                  "p95_ms": pct(0.95), "p99_ms": pct(0.99)}))
+"""
+Row = collections.namedtuple("Row", "doc_id similarity_score window_index")
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def http_json(port, method, path, payload=None, timeout=300):
+    """(status, parsed body) of one request to 127.0.0.1:port."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request(method, path,
+                  None if payload is None else json.dumps(payload),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        c.close()
+
+
+def run_client(code, what):
+    """Run a load client as a separate process; its last stdout line is
+    its JSON result."""
+    out = subprocess.run([sys.executable, "-c", *code], capture_output=True,
+                         text=True, timeout=900, cwd=ROOT)
+    check(out.returncode == 0,
+          f"{what}: client failed: {out.stdout[-400:]} {out.stderr[-800:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def bench_data_plane(port, bodies, what):
+    """``client_bench``: 64 connections, 4,000 requests rotating over
+    ``bodies``, from a separate process."""
+    return run_client(
+        [f"import json, sys; sys.path.insert(0, {ROOT!r}); "
+         "from modern_search_engines_project_tpu_torch.native.native_http "
+         "import client_bench; print(json.dumps(client_bench("
+         f"{port}, n_conns=64, total_requests=4000, timeout_s=600, "
+         f"bodies={bodies!r})))"], what)
+
+
+def same_docs(got, want, what, rtol=1e-5):
+    """Two /api/search document lists: the same doc ids in order, scores
+    to ``rtol`` (the data plane prints 6 significant digits)."""
+    check([d["doc_id"] for d in got] == [d["doc_id"] for d in want],
+          f"{what}: docs {[d['doc_id'] for d in got]} vs "
+          f"{[d['doc_id'] for d in want]}")
+    for a, b in zip(got, want):
+        check(abs(a["score"] - b["score"]) <= rtol * max(1.0, abs(b["score"])),
+              f"{what}: score {a['score']} vs {b['score']}")
+
+
+def cut_artifacts(art, n_docs, windows):
+    """The first ``n_docs`` docs of ``art`` with their postings (impacts
+    as they are; df and idf recounted), chunks and window texts (a list)."""
+    V = art.n_terms
+    keep = np.asarray(art.post_docs) < n_docs
+    term = np.repeat(np.arange(V), np.diff(art.indptr))
+    df = np.bincount(term[keep], minlength=V).astype(np.int32)
+    indptr = np.zeros(V + 1, np.int32)
+    np.cumsum(df, out=indptr[1:])
+    n_ch = int(art.doc_chunk_start[n_docs - 1] + art.doc_n_chunks[n_docs - 1])
+    doc_len = np.asarray(art.doc_len[:n_docs])
+    return dataclasses.replace(
+        art, indptr=indptr, post_docs=art.post_docs[keep],
+        post_impact=art.post_impact[keep],
+        idf=np.log((n_docs - df + 0.5) / (df + 0.5)).astype(np.float32),
+        df=df, doc_len=doc_len, avgdl=float(doc_len.mean()),
+        chunk_emb=art.chunk_emb[:n_ch], chunk_doc=art.chunk_doc[:n_ch],
+        doc_chunk_start=art.doc_chunk_start[:n_docs],
+        doc_n_chunks=art.doc_n_chunks[:n_docs],
+        doc_ids=art.doc_ids[:n_docs], urls=art.urls[:n_docs],
+        titles=art.titles[:n_docs], domains=art.domains[:n_docs],
+        snippets=art.snippets[:n_docs],
+        window_texts=[windows[i] for i in range(n_ch)],
+    )
+
+
+def reset_launches():
+    for k in cuda_lib.KERNELS:
+        k.launches = 0
+
+
+def read_launches():
+    return {k.name: k.launches for k in cuda_lib.KERNELS}
+
+
+def check_batch_launches(counts, batches, n_buckets, what, stats=True):
+    """``batches`` device batches of the slot path launched one BM25 kernel
+    each and the stats kernel once per bucket (none with the int8 bank)."""
+    bm25 = sum(n for k, n in counts.items() if k != "dense_stats")
+    want4 = n_buckets * batches if stats else 0
+    check(bm25 == batches and counts["dense_stats"] == want4,
+          f"{what}: launches {counts} for {batches} device batches "
+          f"({n_buckets} buckets)")
+
+
+def serving_phase(seed, eng, art, words, dfs, cfg, enc, slot_batches, name,
+                  smi):
+    """Phase 5d, the serving surface over the phase-3 slot engine:
+      (1) the C++ data plane (``serve_fastpath``, pipeline 2) with
+          fragments of real-length window texts: 16 single queries equal
+          to ``search_batch_indices`` and ``search_batch``, then 4,000
+          requests over 64 connections from a separate process (256
+          distinct queries), launches checked against its device batches;
+      (2) the asyncio control plane (``SearchService`` in a thread): 16
+          sequential /api/search equal to (1), 64 clients x 8 requests
+          from a separate process (coalescing > 1), /api/health, /stats,
+          /rerank, /batch_search and /profile (a trace with CUDA kernels);
+      (3) ``bank_dtype="int8"`` at B = 1 / 16 / 64: kernel 4 never, the
+          branch's BM25 kernel once; top-10 near the bf16 engine's and
+          equal to the CPU port's int8 engine (B = 1, 16);
+      (4) the CLI booted as a subprocess on a saved 10,000-doc cut with
+          --int8-bank and --fastpath-port: both planes, the same docs, a
+          clean exit on SIGTERM.
+    The data plane's load runs again with pipeline 1 (one dispatcher).
+    Returns the launch counts of (1)-(3)."""
+    t_phase = time.time()
+    launches = {}
+    n_buckets = len(eng.didx.buckets)
+    rng = np.random.default_rng(seed + 5)
+    pool = []
+    while len(pool) < 256:
+        for q in query_strings(rng, dfs, words, 64):
+            if q.strip() and q not in pool and len(pool) < 256:
+                pool.append(q)
+    bodies = [json.dumps({"query": q, "top_k": 10}) for q in pool]
+    windows = SyntheticWindows(seed, words, dfs, art.n_chunks)
+    # the phase-3 slot engine, its window texts at real length: a shallow
+    # copy shares the device index and everything else
+    eng_w = copy.copy(eng)
+    eng_w.art = dataclasses.replace(art, window_texts=windows)
+    eng_w.times = StageTimes()
+
+    # (1) the data plane, pipeline 2 (then 1 on the same load) ------------
+    t0 = time.time()
+    frags = build_fragments(eng_w.art)
+    log(f"serving: data-plane fragments of {art.n_chunks} windows at real "
+        f"length built in {time.time() - t0:.1f} s")
+    fast_docs = {}
+    for pipeline in (2, 1):
+        fast = serve_fastpath(eng_w, free_port(), pipeline=pipeline,
+                              fragments=frags)
+        try:
+            if pipeline == 2:
+                for q in pool[:16]:
+                    st, body = http_json(fast.port, "POST", "/api/search",
+                                         {"query": q, "top_k": 10})
+                    check(st == 200, f"data plane {q!r}: status {st}")
+                    idx = eng_w.search_batch_indices([q], top_k=10)[0]
+                    want = [{"doc_id": str(art.doc_ids[int(art.chunk_doc[w])]),
+                             "score": sc} for w, sc in idx]
+                    same_docs(body["documents"], want, f"data plane {q!r}")
+                    rows = [Row(art.doc_ids[int(art.chunk_doc[w])], sc, w)
+                            for w, sc in idx]
+                    same_top(rows, eng_w.search_batch([q], top_k=10)[0],
+                             f"data plane {q!r} vs search_batch")
+                    fast_docs[q] = body["documents"]
+                check(any(fast_docs.values()), "data plane: every result empty")
+                log("  data plane: 16 single queries equal to "
+                    "search_batch_indices (doc ids, scores) and to "
+                    "search_batch (same_top)")
+            reset_launches()
+            eng_w.times = StageTimes()
+            before = fast.stats()
+            res = bench_data_plane(fast.port, bodies, "data plane")
+            after = fast.stats()
+            counts = read_launches()
+            host = {k: v["mean_ms"] for k, v in eng_w.times.report().items()}
+        finally:
+            fast.stop()
+        batches = after["batches"] - before["batches"]
+        queries = after["batched_queries"] - before["batched_queries"]
+        check(res["errors"] == 0 and res["requests"] == 4000,
+              f"data plane load: {res}")
+        check_batch_launches(counts, batches, n_buckets,
+                             f"data plane pipeline {pipeline} load")
+        launches[f"data plane pipeline {pipeline}, 4000 requests"] = counts
+        log(f"  data plane pipeline {pipeline}, 64 connections, 4000 requests "
+            f"over 256 distinct queries (client in a separate process): "
+            f"{res['qps']:.1f} q/s, p50 {res['p50_ms']:.3f} / p95 "
+            f"{res['p95_ms']:.3f} / p99 {res['p99_ms']:.3f} ms, 0 errors; "
+            f"{batches} device batches, {queries / max(batches, 1):.2f} "
+            f"queries a batch; server stats {json.dumps(after)}; launches "
+            f"{counts}; host stage means (ms) {host}; on {name} ({smi})")
+    # the same load with a canned ranking: the C++ server and the client
+    # alone, the device and the interpreter out of the loop
+    stub = make_server(free_port(), max_batch=cfg.query_batch_size,
+                       default_top_k=10)
+    stub.load_fragments(frags)
+    attach_stub(stub, art.n_chunks, k=10)
+    stub.start()
+    try:
+        res = bench_data_plane(stub.port, bodies, "data plane stub")
+        st = stub.stats()
+    finally:
+        stub.stop()
+    check(res["errors"] == 0 and res["requests"] == 4000,
+          f"data plane stub load: {res}")
+    log(f"  data plane with a canned ranking (no device, no interpreter), "
+        f"the same load: {res['qps']:.1f} q/s, p50 {res['p50_ms']:.3f} / "
+        f"p99 {res['p99_ms']:.3f} ms; server stats {json.dumps(st)}")
+
+    # (2) the control plane ------------------------------------------------
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    qpath = os.path.join(build, "serve_queries.txt")
+    with open(qpath, "w", encoding="utf-8") as f:
+        f.writelines(f"{i + 1}\t{q}\n" for i, q in enumerate(pool[:10]))
+    svc = SearchService(eng_w, queries_path=qpath, query_cache_size=0,
+                        results_path=os.path.join(build, "serve_results.txt"),
+                        trace_root=os.path.join(build, "serve_profile"))
+    srv = ServerThread(svc.build_app()).start()
+    try:
+        lat = []
+        for q in pool[:16]:
+            t0 = time.perf_counter()
+            st, body = http_json(srv.port, "POST", "/api/search",
+                                 {"query": q, "top_k": 10, "query_id": "q"})
+            lat.append(time.perf_counter() - t0)
+            check(st == 200 and list(body) == ["llm_response", "documents"],
+                  f"control plane {q!r}: {st}")
+            for i, d in enumerate(body["documents"], 1):
+                check(list(d) == ["query_id", "rank", "url", "score", "title",
+                                  "snippet", "domain", "doc_id"]
+                      and d["rank"] == i and d["query_id"] == "q",
+                      f"control plane {q!r}: row {d}")
+            same_docs(body["documents"], fast_docs[q],
+                      f"control plane vs data plane {q!r}")
+        summ = []
+        for q in pool[:16]:
+            wins = [r.window_text for r in eng_w.search(q, top_k=10)]
+            t0 = time.perf_counter()
+            svc.summarizer.generate_summary(q, wins)
+            summ.append(time.perf_counter() - t0)
+        log(f"  control plane: 16 sequential /api/search, the reference's "
+            f"schema, the data plane's docs; p50 "
+            f"{np.median(lat) * 1e3:.3f} ms; the extractive llm_response of "
+            f"a request's 10 windows alone: p50 {np.median(summ) * 1e3:.3f} "
+            f"ms on the host")
+        reset_launches()
+        b0 = svc.batcher.stats()
+        res = run_client([CP_CLIENT, json.dumps([srv.port, 64, 8, bodies])],
+                         "control plane")
+        counts = read_launches()
+        st, tm = http_json(srv.port, "GET", "/api/timings")
+        b1 = tm["online_batching"]
+        batches = b1["device_batches"] - b0["device_batches"]
+        check(res["errors"] == 0 and res["requests"] == 512,
+              f"control plane load: {res}")
+        check(st == 200 and b1["coalescing_ratio"] > 1,
+              f"control plane: coalescing {b1}")
+        check_batch_launches(counts, batches, n_buckets, "control plane load")
+        launches["control plane, 512 requests"] = counts
+        log(f"  control plane, 64 clients x 8 requests (a separate process): "
+            f"{res['qps']:.1f} q/s, p50 {res['p50_ms']:.3f} / p95 "
+            f"{res['p95_ms']:.3f} / p99 {res['p99_ms']:.3f} ms, 0 errors; "
+            f"{batches} device batches, {512 / max(batches, 1):.2f} requests "
+            f"a batch; /api/timings online_batching {json.dumps(b1)}; "
+            f"launches {counts}; on {name} ({smi})")
+        st, h = http_json(srv.port, "GET", "/api/health")
+        check(st == 200 and h == {"status": "healthy",
+                                  "search_engine_ready": True}, f"health {h}")
+        st, stats = http_json(srv.port, "GET", "/api/stats")
+        check(st == 200 and stats["total_documents"] == art.n_docs,
+              f"stats {stats}")
+        stage1 = eng_w.bm25_search(pool[0], top_k=100)
+        st, rr = http_json(srv.port, "POST", "/api/rerank", {
+            "doc_ids": [r["doc_id"] for r in stage1],
+            "similarities": [r["score"] for r in stage1], "query": pool[0]})
+        sc = [d["similarity_score"] for d in rr.get("document_scores", [])]
+        check(st == 200 and sc and sc == sorted(sc, reverse=True),
+              f"rerank: {st}")
+        st, bs = http_json(srv.port, "POST", "/api/batch_search")
+        check(st == 200 and bs["total_queries"] == 10
+              and bs["total_results"] > 0, f"batch_search: {st}")
+        st, pr = http_json(srv.port, "POST", "/api/profile",
+                           {"queries": pool[:16], "label": "serving"})
+        check(st == 200 and os.path.abspath(pr["trace_dir"]).startswith(build),
+              f"profile: {st} {pr}")
+        traces = sorted(f for f in os.listdir(pr["trace_dir"])
+                        if f.startswith("trace_"))
+        with open(os.path.join(pr["trace_dir"], traces[-1])) as f:
+            cats = collections.Counter(
+                e.get("cat") for e in json.load(f)["traceEvents"])
+        check(cats.get("kernel", 0) > 0, f"profile trace: no CUDA kernel "
+              f"events ({dict(cats)})")
+        log(f"  control plane: /api/health, /api/stats ({stats}), /api/rerank "
+            f"({len(sc)} rows from {len(stage1)} stage-1 candidates), "
+            f"/api/batch_search ({bs['total_results']} rows), /api/profile "
+            f"({pr['wall_seconds']} s; {traces[-1]}: {cats['kernel']} CUDA "
+            f"kernel events of {sum(cats.values())})")
+    finally:
+        srv.stop()
+
+    # (3) the int8 bank ----------------------------------------------------
+    t0 = time.time()
+    eng8 = SearchEngine(art, enc, cfg, bank_dtype="int8")
+    torch.cuda.synchronize()
+
+    def bank_mb(e):
+        return sum(t.numel() * t.element_size() for b in e.didx.bucket_emb
+                   for t in (b if isinstance(b, tuple) else (b,))) / 1e6
+
+    check(bank_mb(eng8) < 0.55 * bank_mb(eng), "int8 bank does not halve")
+    log(f"  int8 engine built in {time.time() - t0:.1f} s: bank "
+        f"{bank_mb(eng8):.1f} MB (bf16 {bank_mb(eng):.1f} MB), resident "
+        f"{eng8.didx.resident_bytes() / 1e6:.1f} MB (bf16 engine "
+        f"{eng.didx.resident_bytes() / 1e6:.1f} MB)")
+    want_bm25 = {"B=1": "bm25_slots", "B=16": "bm25_slots_udedup_sublane",
+                 "B=64": "bm25_slots_udedup_i8"}
+    res8 = {}
+    for key, qs in slot_batches.items():
+        reset_launches()
+        res8[key] = eng8.search_batch(qs, top_k=10)
+        counts = read_launches()
+        for k, n in counts.items():
+            check(n == int(k == want_bm25[key]),
+                  f"int8 {key}: {k} launched {n} times")
+        launches[f"int8 {key}"] = counts
+        worst = 1.0
+        for a, b in zip(eng.search_batch(qs, top_k=10), res8[key]):
+            ids_a, ids_b = [r.doc_id for r in a], [r.doc_id for r in b]
+            if not ids_a:
+                check(not ids_b, f"int8 {key}: results where bf16 has none")
+                continue
+            ov = len(set(ids_a) & set(ids_b)) / len(ids_a)
+            worst = min(worst, ov)
+            check(ov >= 0.9, f"int8 {key}: overlap {ov} with bf16")
+            sb = {r.doc_id: r.similarity_score for r in b}
+            for r in a:
+                if r.doc_id in sb:
+                    check(abs(r.similarity_score - sb[r.doc_id]) < 0.05,
+                          f"int8 {key}: doc {r.doc_id} score vs bf16")
+        log(f"  int8 {key}: launches {counts}; top-10 overlap with the bf16 "
+            f"engine >= {worst:.2f}, shared docs' scores within 0.05")
+    t0 = time.time()
+    cpu8 = SearchEngine(art, enc, cfg, bank_dtype="int8", device="cpu")
+    for key in ("B=1", "B=16"):
+        want = cpu8.search_batch(slot_batches[key], top_k=10)
+        for i, (g, w) in enumerate(zip(res8[key], want)):
+            same_top(g, w, f"int8 card vs cpu {key} q{i}")
+    qv = torch.as_tensor(eng8.encode_queries(slot_batches["B=16"]))
+    raw_card = ops._int8_product(
+        eng8.didx.bucket_emb[0][0].flatten(0, 1),
+        ops.quantize_queries_int8(qv.to(eng8.device))[0])
+    raw_cpu = ops._int8_product(cpu8.didx.bucket_emb[0][0].flatten(0, 1),
+                                ops.quantize_queries_int8(qv)[0])
+    check(torch.equal(raw_card.cpu(), raw_cpu),
+          "int8: the card's s32 product differs from the cpu's")
+    log(f"  int8 card == cpu int8 engine on B=1 and B=16 (same_top), s32 "
+        f"product of bucket 0 equal bit for bit "
+        f"({time.time() - t0:.1f} s)")
+    del cpu8
+    for key, qs in slot_batches.items():
+        p50 = {}
+        for label, e in (("bf16", eng), ("int8", eng8)):
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                e.search_batch(qs, top_k=10)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            p50[label] = float(np.median(ts)) * 1e3
+        busy = {}
+        for label, e in (("bf16", eng), ("int8", eng8)):
+            prof = profile_call(lambda: e.search_batch(qs, top_k=10))
+            busy[label] = None if prof is None else prof["device_busy_ms"]
+        log(f"  int8 vs bf16 search_batch {key}: p50 {p50['int8']:.3f} vs "
+            f"{p50['bf16']:.3f} ms, device busy {busy['int8']} vs "
+            f"{busy['bf16']} ms on {name} ({smi})")
+    del eng8
+
+    # (4) the CLI ----------------------------------------------------------
+    t0 = time.time()
+    idx_dir = os.path.join(build, "serve_index")
+    cut = cut_artifacts(art, SERVE_CUT_DOCS, windows)
+    save_artifacts(cut, idx_dir)
+    log(f"  CLI: {SERVE_CUT_DOCS}-doc cut ({cut.n_chunks} windows, "
+        f"{cut.post_docs.size} postings) saved in {time.time() - t0:.1f} s")
+    port, fport = free_port(), free_port()
+    with open(os.path.join(build, "serve_cli.log"), "wb") as logf:
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "modern_search_engines_project_tpu_torch."
+             "serving", "--index", idx_dir, "--host", "127.0.0.1", "--port",
+             str(port), "--fastpath-port", str(fport), "--int8-bank",
+             "--trace-root", os.path.join(build, "serve_cli_profile")],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT)
+        try:
+            deadline = time.time() + 300
+            while True:
+                check(proc.poll() is None and time.time() < deadline,
+                      f"CLI: not healthy (rc {proc.poll()}), see "
+                      "build/serve_cli.log")
+                try:
+                    if http_json(port, "GET", "/api/health", timeout=5)[0] \
+                            == 200:
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            boot_s = time.time() - t0
+            n_docs = 0
+            for q in pool[:8]:
+                st_f, f_body = http_json(fport, "POST", "/api/search",
+                                         {"query": q, "top_k": 10})
+                st_c, c_body = http_json(port, "POST", "/api/search",
+                                         {"query": q, "top_k": 10})
+                check(st_f == st_c == 200, f"CLI {q!r}: {st_f} / {st_c}")
+                same_docs(f_body["documents"], c_body["documents"],
+                          f"CLI data plane vs control plane {q!r}")
+                n_docs += len(c_body["documents"])
+            check(n_docs > 0, "CLI: every result empty")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            check(rc in (0, -signal.SIGTERM), f"CLI: exit code {rc} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    log(f"  CLI --index ({SERVE_CUT_DOCS}-doc cut) --int8-bank --fastpath-port: "
+        f"healthy "
+        f"{boot_s:.1f} s after start (warmup included); 8 queries, both "
+        f"planes the same docs ({n_docs} rows); exit code {rc} on SIGTERM")
+    log(f"  serving phase: {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1464,6 +2027,10 @@ def main(argv=None) -> int:
         args.seed, art, words, dfs, cfg, eng, slot_batches, name, smi)
     decoder_phase(args.seed, words, q3, [r.window_text for r in rows3[:10]],
                   name, smi)
+
+    # --- phase 5d: the serving surface ------------------------------------
+    launches["serving"] = serving_phase(args.seed, eng, art, words, dfs, cfg,
+                                        enc, slot_batches, name, smi)
 
     # --- phase 6: small phases ----------------------------------------------
     check_empty_index(cfg, enc)

@@ -1,3 +1,7 @@
+from modern_search_engines_project_tpu_torch.index.artifacts import (
+    load_artifacts,
+    save_artifacts,
+)
 from modern_search_engines_project_tpu_torch.index.builder import (
     Document,
     IndexArtifacts,
@@ -13,5 +17,7 @@ __all__ = [
     "IndexBuilder",
     "TermDictionary",
     "extract_domain",
+    "load_artifacts",
     "make_snippet",
+    "save_artifacts",
 ]

@@ -165,7 +165,8 @@ class CudaKernel:
     """One launcher of the library plus its launch count.
 
     ``launches`` grows by one for every launch this object makes, and
-    nowhere else; plain-version calls never touch it."""
+    nowhere else; plain-version calls never touch it.  The count is taken
+    under a lock: two threads may launch through one engine at once."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name = name
@@ -173,6 +174,7 @@ class CudaKernel:
         self.source = source  # path in the repo
         self.replaces = replaces  # file:line of the TPU kernel
         self.launches = 0
+        self._count_lock = threading.Lock()
 
     def launch(self, device: torch.device, *args) -> None:
         lib = load()
@@ -182,7 +184,8 @@ class CudaKernel:
         if rc != 0:
             msg = lib.mse_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg} ({rc})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 KERNELS: list = []  # every CudaKernel of the port, in registration order

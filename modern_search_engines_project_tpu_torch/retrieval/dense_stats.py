@@ -35,13 +35,18 @@ def bucket_sims(emb: torch.Tensor, qvec: torch.Tensor) -> torch.Tensor:
 
 
 def stats_plain(emb: torch.Tensor, qvec: torch.Tensor):
-    """Plain version of kernel 4: sims, then the streaming top-2 / min.
+    """Plain version of kernel 4: sims, then the streaming top-2 / min."""
+    return slot_top2(bucket_sims(emb, qvec))
+
+
+def slot_top2(sims: torch.Tensor):
+    """Streaming top-2 and min over the slot axis of sims [B, n, cnt] ->
+    (v1, v2, w1, w2, vmin), each [B, cnt].
 
     Strict ``>`` keeps the LOWEST slot on ties (a duplicate of the max
     lands in v2); v2 starts at -inf; single-chunk docs give
     (v1, v1, 0, 0, v1)."""
-    n = emb.shape[0]
-    sims = bucket_sims(emb, qvec)
+    n = sims.shape[1]
     v1 = sims[:, 0, :]
     w1 = torch.zeros_like(v1, dtype=torch.int32)
     if n == 1:

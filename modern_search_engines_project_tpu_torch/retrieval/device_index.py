@@ -62,6 +62,20 @@ def upload(a, device: torch.device) -> torch.Tensor:
     return t
 
 
+def quantize_bank_int8(emb: np.ndarray):
+    """Symmetric per-row int8 quantization of an embedding bank (the
+    reference's, same rounding and clip): returns (q [n, dim] int8,
+    inv_scale [n] f32) with ``emb ~= q * inv_scale[:, None]``.  An all-zero
+    row gets scale 1/127 and zeros.  Opt-in via ``bank_dtype="int8"``:
+    half the device memory of bf16."""
+    m = np.abs(emb).max(axis=1)
+    m = np.where(m > 0, m, 1.0).astype(np.float32)
+    q = np.clip(
+        np.round(emb / m[:, None] * 127.0), -127, 127
+    ).astype(np.int8)
+    return q, (m / 127.0).astype(np.float32)
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -529,7 +543,9 @@ class DeviceIndex:
     doc_n_chunks: Optional[torch.Tensor]  # int32 [n_docs_pad + 1]
     # dense, bucketed exact-stride layout (docs permuted by chunk count)
     buckets: tuple  # ((n, cnt_pad), ...)
-    bucket_emb: tuple  # per bucket: bank dtype [n, cnt_pad, dim] slot-major
+    # per bucket: bank dtype [n, cnt_pad, dim] slot-major, or with the int8
+    # bank the pair (q8 int8 [n, cnt_pad, dim], inv_scale f32 [n, cnt_pad])
+    bucket_emb: tuple
     bucket_valid: tuple  # per bucket: bool [cnt_pad] (real doc?)
     bucket_start: tuple  # per bucket: int32 [cnt_pad] packed chunk start
     doc_perm: Optional[np.ndarray]  # host: new doc idx -> artifact doc idx
@@ -556,7 +572,9 @@ class DeviceIndex:
     ) -> "DeviceIndex":
         """Build the index on ``device`` (the card by default) with the
         ``bm25_layout`` postings resident.  The banks are bf16 on the card
-        and f32 on the CPU unless ``bank_dtype`` says otherwise."""
+        and f32 on the CPU unless ``bank_dtype`` says otherwise; "int8"
+        (or ``torch.int8``) quantizes each bucket bank per row
+        (``quantize_bank_int8``), while a packed bank stays f32."""
         dev = resolve_device(device)
         return device_index_from_numpy(
             build_index_fields(art, config, bm25_layout), dev, bank_dtype
@@ -570,7 +588,8 @@ class DeviceIndex:
             self.chunk_doc,
             self.doc_chunk_start,
             self.doc_n_chunks,
-            *self.bucket_emb,
+            *(t for e in self.bucket_emb
+              for t in (e if isinstance(e, tuple) else (e,))),
             *self.bucket_valid,
             *self.bucket_start,
         ]
@@ -600,6 +619,9 @@ def device_index_from_numpy(
     dev = resolve_device(device)
     if bank_dtype is None:
         bank_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    # "int8", the reference's spelling, or torch.int8
+    int8 = bank_dtype == "int8" or bank_dtype is torch.int8
+    packed_dtype = torch.float32 if int8 else bank_dtype
 
     def put(x, dtype):
         # a writable C-ordered array (copied only when it is not one)
@@ -622,6 +644,16 @@ def device_index_from_numpy(
         )
     else:
         raise ValueError("fields hold neither the slot nor the blocked layout")
+
+    def bank(e):
+        e = np.asarray(e, np.float32)
+        if not int8:
+            return put(e, bank_dtype)
+        n, cnt, dim = e.shape
+        q8, inv = quantize_bank_int8(e.reshape(n * cnt, dim))
+        return (put(q8.reshape(n, cnt, dim), torch.int8),
+                put(inv.reshape(n, cnt), torch.float32))
+
     chunk_emb = fields.get("chunk_emb")
     doc_perm = fields.get("doc_perm")
     return DeviceIndex(
@@ -632,16 +664,13 @@ def device_index_from_numpy(
         blocked=blocked,
         chunk_emb=(
             None if chunk_emb is None
-            else put(np.asarray(chunk_emb, np.float32), bank_dtype)
+            else put(np.asarray(chunk_emb, np.float32), packed_dtype)
         ),
         chunk_doc=put(fields.get("chunk_doc"), torch.int32),
         doc_chunk_start=put(fields.get("doc_chunk_start"), torch.int32),
         doc_n_chunks=put(fields.get("doc_n_chunks"), torch.int32),
         buckets=tuple((int(n), int(c)) for n, c in fields["buckets"]),
-        bucket_emb=tuple(
-            put(np.asarray(e, np.float32), bank_dtype)
-            for e in fields["bucket_emb"]
-        ),
+        bucket_emb=tuple(bank(e) for e in fields["bucket_emb"]),
         bucket_valid=tuple(put(v, torch.bool) for v in fields["bucket_valid"]),
         bucket_start=tuple(
             put(s, torch.int32) for s in fields["bucket_start"]

@@ -13,6 +13,12 @@ cross-encoder rescoring each query's final rows).  ``bm25_search`` and
 
 Runs on the card unless the caller passes ``device="cpu"``, where every
 kernel wrapper takes its plain PyTorch version.
+
+Two threads may call one engine at once (the C++ data plane keeps two
+batches in flight): the index is read-only, every call allocates its own
+tensors, the stage timer and the kernels' launch counters take locks, and
+both threads enqueue on the device's current stream, so memory the caching
+allocator hands from one call to the other is stream-ordered.
 """
 
 from __future__ import annotations
@@ -60,14 +66,16 @@ class SearchEngine:
         artifacts: IndexArtifacts,
         encoder,
         config: Optional[Config] = None,
-        bank_dtype: Optional[torch.dtype] = None,
+        bank_dtype=None,
         analyzer: Optional[Analyzer] = None,
         device=None,
         cross_encoder=None,
     ):
         """``device``: "cuda" (default) or "cpu"; with no card and no
         ``device="cpu"`` this raises.  ``bank_dtype`` defaults to bf16 on
-        the card and f32 on the CPU.  ``cross_encoder``: the optional stage
+        the card and f32 on the CPU; "int8" (or ``torch.int8``) serves
+        per-row int8 bucket banks, which stay off kernel 4 (an s32 library
+        product and the streaming top-2).  ``cross_encoder``: the optional stage
         3, anything with ``rescore(query, texts) -> float32 [n]``
         (``models.cross_encoder.CrossEncoderReranker``)."""
         self.art = artifacts
@@ -341,10 +349,13 @@ class SearchEngine:
         n_wins = len(self.art.window_texts)
         start = self.art.doc_chunk_start
         out: List[List[tuple]] = []
-        for d_sel, sc, _o, w_sel in self._finish_rows(raw, len(queries), top_k):
-            bad = (w_sel < 0) | (w_sel >= n_wins)
-            w_sel = np.where(bad, start[d_sel], w_sel)
-            out.append(list(zip(w_sel.tolist(), sc.tolist())))
+        with stage_timer("finish_indices", self.times):
+            for d_sel, sc, _o, w_sel in self._finish_rows(
+                raw, len(queries), top_k
+            ):
+                bad = (w_sel < 0) | (w_sel >= n_wins)
+                w_sel = np.where(bad, start[d_sel], w_sel)
+                out.append(list(zip(w_sel.tolist(), sc.tolist())))
         return out
 
     def search(self, query: str, top_k: Optional[int] = None) -> List[RankedDoc]:

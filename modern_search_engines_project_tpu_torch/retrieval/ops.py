@@ -8,7 +8,10 @@ positional adjustment -> final ranking.  No-bucket tail (an index without
 chunk buckets): blocked BM25 -> top-k -> dense sims over the packed bank
 with sorted-segment reductions.  Same math and the same tie rules as the
 reference (``lax.top_k`` order: value descending, then index ascending; a
-stable final re-sort).
+stable final re-sort).  An int8 bucket bank (``bank_dtype="int8"``, a
+(q8, inv_scale) pair a bucket) stays off kernel 4, as in the reference:
+its sims are an s8 x s8 -> s32 product (``int8_bucket_sims``) followed by
+the streaming top-2.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
 from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
     bucket_sims,
     bucket_stats,
+    slot_top2,
 )
 
 _BIG = 2**31 - 1  # int32 sentinel; must survive the f32 lane (bitcast)
@@ -141,11 +145,67 @@ def dense_candidates_from_topk(bm, top_vals, n_docs_pad: int, n_valid=None):
     return cand_mask, old_dense, old_norm, valid_c
 
 
+def quantize_queries_int8(qvec: torch.Tensor):
+    """Symmetric per-row int8 quantization of f32 queries [B, dim] (the
+    reference's): (qi int8 [B, dim], qm f32 [B, 1]) with
+    ``qvec ~= qi * qm / 127``; an all-zero row gets qm = 1."""
+    qm = qvec.abs().amax(dim=1, keepdim=True)
+    qm = torch.where(qm > 0, qm, 1.0)
+    qi = torch.clamp(torch.round(qvec / qm * 127.0), -127, 127)
+    return qi.to(torch.int8), qm
+
+
+def _int8_product(q8: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
+    """Exact s8 x s8 -> s32 product of the bank rows q8 [M, dim] and the
+    queries qi [B, dim] -> [M, B] int32.  On the card one
+    ``torch._int_mm`` with the bank on the M side (it wants more than 16
+    rows and inner and output widths that are multiples of 8: the queries
+    and the dim axis are zero-padded to 8); on the CPU an int32 matmul."""
+    if q8.device.type != "cuda":
+        return q8.to(torch.int32) @ qi.to(torch.int32).T
+    M, dim = q8.shape
+    B = qi.shape[0]
+    pd, pb = (-dim) % 8, (-B) % 8
+    if pd:
+        q8 = torch.nn.functional.pad(q8, (0, pd))
+        qi = torch.nn.functional.pad(qi, (0, pd))
+    if M <= 16:
+        q8 = torch.nn.functional.pad(q8, (0, 0, 0, 17 - M))
+    if pb:
+        qi = torch.nn.functional.pad(qi, (0, 0, 0, pb))
+    return torch._int_mm(q8, qi.T)[:M, :B]
+
+
+def int8_bucket_sims(pair, qvec: torch.Tensor) -> torch.Tensor:
+    """[B, n, cnt] f32 sims of queries and an int8 bucket bank ``pair`` =
+    (q8 [n, cnt, dim] int8, inv [n, cnt] f32): each query row quantized
+    symmetrically, the product s8 x s8 -> s32 (exact), then the scales
+    applied as ``raw.f32 * (qm / 127) * inv``, in that order (the
+    reference's ``_bucket_sims`` pair branch)."""
+    q8, inv = pair
+    n, cnt, dim = q8.shape
+    qi, qm = quantize_queries_int8(qvec.to(torch.float32))
+    raw = _int8_product(q8.reshape(n * cnt, dim), qi)  # [n*cnt, B]
+    raw = raw.T.reshape(-1, n, cnt)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can differ from qm / 127 by an ulp
+    scale = qm / torch.full_like(qm, 127.0)
+    return raw.to(torch.float32) * scale[:, :, None] * inv[None, :, :]
+
+
 def bucket_doc_stats(buckets, bucket_emb, qvec):
     """ONE dense pass over the chunk bank -> per bucket (v1, v2, w1, w2,
-    vmin), each [B, cnt], through kernel 4.  Rows of bucket-pad docs are
-    garbage; they are never candidates (keyed BM25 score -1)."""
-    return [bucket_stats(emb, qvec) for emb in bucket_emb]
+    vmin), each [B, cnt], through kernel 4; an int8 pair bank takes its
+    s32 product and the streaming top-2 over the slot axis instead (strict
+    ``>`` keeps the lowest slot on ties, ``n == 1`` gives (v1, v1, 0, 0,
+    v1)), as the reference keeps int8 banks off its stats kernel.  Rows of
+    bucket-pad docs are garbage; they are never candidates (keyed BM25
+    score -1)."""
+    return [
+        slot_top2(int8_bucket_sims(emb, qvec)) if isinstance(emb, tuple)
+        else bucket_stats(emb, qvec)
+        for emb in bucket_emb
+    ]
 
 
 def stats_pool_extrema(stats, cand_mask, buckets):
@@ -361,14 +421,15 @@ def dense_rank(chunk_emb, chunk_doc, qvec, *, n_docs_pad: int, k: int):
 
 
 def bucket_dense_best(buckets, bucket_emb, bucket_valid, bucket_start, qvec):
-    """Brute-force dense per-doc best over every bucket ->
-    (doc_best [B, sum cnt], win_gid [B, sum cnt]).  Ties pick the lowest
-    slot (``torch.argmax`` returns the first maximum, as ``jnp.argmax``)."""
+    """Brute-force dense per-doc best over every bucket (dense or int8 pair
+    banks) -> (doc_best [B, sum cnt], win_gid [B, sum cnt]).  Ties pick the
+    lowest slot (``torch.argmax`` returns the first maximum, as
+    ``jnp.argmax``)."""
     score_parts, win_parts = [], []
     for emb, dv, bs in zip(bucket_emb, bucket_valid, bucket_start):
-        sims = torch.where(
-            dv[None, None, :], bucket_sims(emb, qvec), float("-inf")
-        )  # (B, n, cnt)
+        sims = (int8_bucket_sims(emb, qvec) if isinstance(emb, tuple)
+                else bucket_sims(emb, qvec))
+        sims = torch.where(dv[None, None, :], sims, float("-inf"))
         score_parts.append(sims.amax(dim=1))
         slot = torch.argmax(sims, dim=1).to(torch.int32)
         win_parts.append(bs[None, :] + slot)

@@ -1132,3 +1132,127 @@ def test_decode_on_card_past_the_last_position(cuda):
     near = np.nonzero(top2[:, 1] - top2[:, 0] < 2 * tol)[0]
     first = int(near[0]) if near.size else 9
     np.testing.assert_array_equal(got[0, :first], want[0, :first])
+
+
+# ---- the int8 bank and the serving surface on the card ----------------------
+
+
+@pytest.mark.parametrize("n,cnt,dim,B", [(1, 8, 768, 1), (3, 128, 768, 16),
+                                         (2, 256, 768, 65), (4, 128, 36, 5)])
+def test_int8_tail_on_card_matches_cpu(cuda, n, cnt, dim, B):
+    """The int8 pair branch on the card (``torch._int_mm``, the bank on the
+    M side, queries and dim zero-padded to 8) against the CPU's exact
+    int32 product: the s32 product equal, the scaled sims and the
+    streaming top-2 stats equal bit for bit (elementwise f32 on both)."""
+    from modern_search_engines_project_tpu_torch.retrieval import ops
+    from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+        quantize_bank_int8,
+    )
+
+    rng = np.random.default_rng(n * 1000 + dim + B)
+    emb = rng.standard_normal((n * cnt, dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    emb[1] = 0.0
+    q8, inv = quantize_bank_int8(emb)
+    pair = (torch.from_numpy(q8.reshape(n, cnt, dim)),
+            torch.from_numpy(inv.reshape(n, cnt)))
+    card = tuple(t.to(cuda) for t in pair)
+    qv = torch.from_numpy(rng.standard_normal((B, dim)).astype(np.float32))
+    qi, _ = ops.quantize_queries_int8(qv)
+    qi_card, _ = ops.quantize_queries_int8(qv.to(cuda))
+    assert torch.equal(qi_card.cpu(), qi)
+    raw = ops._int8_product(card[0].flatten(0, 1), qi_card)
+    assert raw.dtype == torch.int32 and raw.shape == (n * cnt, B)
+    assert torch.equal(raw.cpu(), ops._int8_product(pair[0].flatten(0, 1), qi))
+    sims = ops.int8_bucket_sims(card, qv.to(cuda))
+    assert torch.equal(sims.cpu(), ops.int8_bucket_sims(pair, qv))
+    got = ops.bucket_doc_stats([(n, cnt)], [card], qv.to(cuda))[0]
+    want = ops.bucket_doc_stats([(n, cnt)], [pair], qv)[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_int8_engine_on_card_matches_cpu(cuda):
+    """bank_dtype="int8" on the card: kernel 4 never launches, the BM25
+    kernel of the branch once a batch; results equal the CPU port's int8
+    engine, and dense_search too."""
+    docs, words = _docs(3)
+    cfg = Config(embedding_dim=64, window_size=64, step_size=50,
+                 top_k_retrieval=200, top_k_reranking=10)
+    enc = HashingEncoder(dim=64)
+    art = IndexBuilder(enc, cfg).build(docs)
+    gpu = SearchEngine(art, enc, cfg, bank_dtype="int8")
+    cpu = SearchEngine(art, enc, cfg, bank_dtype="int8", device="cpu")
+    assert all(isinstance(e, tuple) and e[0].dtype == torch.int8
+               for e in gpu.didx.bucket_emb)
+    rng = np.random.default_rng(4)
+    for B in (1, 16, 64):
+        qs = [" ".join(rng.choice(words, 4)) for _ in range(B)]
+        before = STATS_KERNEL.launches
+        got = gpu.search_batch(qs, top_k=10)
+        assert STATS_KERNEL.launches == before
+        want = cpu.search_batch(qs, top_k=10)
+        _same_results(got, want)
+        for g, w in zip(got, want):
+            assert [r.doc_id for r in g] == [r.doc_id for r in w]
+    for q in ("wabq wacq", "tübingen"):
+        g, w = gpu.dense_search(q, top_k=20), cpu.dense_search(q, top_k=20)
+        assert [r.doc_id for r in g] == [r.doc_id for r in w]
+
+
+def test_data_plane_over_card_engine(cuda):
+    """The C++ data plane with two dispatchers over an engine on the card:
+    each response equals ``search_batch_indices`` on the same engine, under
+    concurrent clients; the rank callback runs on the engine's device."""
+    import http.client
+    import json
+    import socket
+    import threading
+
+    from modern_search_engines_project_tpu_torch.serving.fastpath import (
+        serve_fastpath,
+    )
+
+    docs, words = _docs(5)
+    cfg = Config(embedding_dim=64, window_size=64, step_size=50,
+                 top_k_retrieval=200, top_k_reranking=10)
+    enc = HashingEncoder(dim=64)
+    eng = SearchEngine(IndexBuilder(enc, cfg).build(docs), enc, cfg)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    rng = np.random.default_rng(6)
+    queries = [" ".join(rng.choice(words, 3)) for _ in range(24)]
+    want = {q: eng.search_batch_indices([q], top_k=10)[0] for q in queries}
+    srv = serve_fastpath(eng, port, pipeline=2)
+    errs = []
+
+    def client(qs):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for q in qs:
+                c.request("POST", "/api/search",
+                          json.dumps({"query": q, "top_k": 10}))
+                r = c.getresponse()
+                body = json.loads(r.read())
+                assert r.status == 200
+                ids = [d["doc_id"] for d in body["documents"]]
+                assert ids == [str(eng.art.doc_ids[eng.art.chunk_doc[w]])
+                               for w, _ in want[q]], q
+        except Exception as e:  # pragma: no cover
+            errs.append(e)
+        finally:
+            c.close()
+
+    try:
+        ts = [threading.Thread(target=client, args=(queries[i::8],))
+              for i in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        assert not errs and not any(t.is_alive() for t in ts)
+        assert srv.stats()["served"] == 24
+    finally:
+        srv.stop()

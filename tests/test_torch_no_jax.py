@@ -12,18 +12,20 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "modern_search_engines_project_tpu_torch"
-# every Python module of the port (native/, bench_kernels.py and the
-# synthetic index among them), the native analyzer's C++ source, and
-# chip_smoke.py
+# every Python module of the port (native/, serving/, bench_kernels.py and
+# the synthetic index among them), the C++ sources of the native analyzer
+# and the data plane (native/http_server.cpp), and chip_smoke.py
 SOURCES = (sorted(PORT.rglob("*.py")) + sorted((PORT / "native").glob("*.cpp"))
            + [ROOT / "chip_smoke.py"])
 FORBIDDEN = re.compile(
     r"\bjax\b|\bflax\b|modern_search_engines_project_tpu\.|"
     r"from\s+modern_search_engines_project_tpu\s+import"
 )
-# neither the msgpack package nor an HTTP client outside the standard
-# library (the checkpoint reader and the assistant's client do without)
-FORBIDDEN_IMPORTS = re.compile(r"^\s*(import|from)\s+(msgpack|httpx)\b")
+# neither the msgpack package nor an HTTP client or server outside the
+# standard library (the checkpoint reader, the assistant's client and the
+# control plane on asyncio do without; the card's machine has no aiohttp)
+FORBIDDEN_IMPORTS = re.compile(
+    r"^\s*(import|from)\s+(msgpack|httpx|aiohttp)\b")
 
 
 def test_port_searches_with_jax_blocked():
@@ -172,6 +174,78 @@ def test_stage3_and_assistant_run_with_jax_flax_msgpack_httpx_blocked():
         assert isinstance(out, str) and out, out
         assert ExtractiveSummarizer().generate_summary("q", []) == ""
         assert HttpLlmClient("http://127.0.0.1:9/x").timeout == 30.0
+        loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
+                  or m.startswith("modern_search_engines_project_tpu.")]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_scan_covers_the_data_plane_source():
+    assert PORT / "native" / "http_server.cpp" in SOURCES
+    assert PORT / "serving" / "http.py" in SOURCES
+
+
+def test_serving_runs_with_jax_and_aiohttp_blocked(tmp_path):
+    """Every module of the serving slice imports with neither jax nor
+    aiohttp importable, and the control plane serves one /api/search on
+    the CPU from an index saved and loaded by the port."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for m in ("jax", "flax", "aiohttp", "msgpack", "httpx"):
+            sys.modules[m] = None  # any import of these now fails
+        import http.client, json
+        from modern_search_engines_project_tpu_torch.config import Config
+        from modern_search_engines_project_tpu_torch.eval import batch
+        from modern_search_engines_project_tpu_torch.index import (
+            Document, IndexBuilder, artifacts, load_artifacts,
+            save_artifacts)
+        from modern_search_engines_project_tpu_torch.models import (
+            HashingEncoder)
+        from modern_search_engines_project_tpu_torch.native import (
+            native_http)
+        from modern_search_engines_project_tpu_torch.retrieval import (
+            SearchEngine)
+        from modern_search_engines_project_tpu_torch.serving import (
+            SearchService, extract_domain_topic)
+        from modern_search_engines_project_tpu_torch.serving import (
+            api, batcher, fastpath, http as web, multiproc, rate_limiter,
+            topic)
+        from modern_search_engines_project_tpu_torch.serving import (
+            __main__ as cli)
+        from modern_search_engines_project_tpu_torch.utils import (
+            device_trace)
+        abc = "abcdefghijklmnopqrstuvwxyz"
+        words = [f"w{{a}}{{b}}q" for a in abc for b in abc]
+        texts = [" ".join(words[(i * 13 + j * 29) % 676] for j in range(8))
+                 for i in range(40)]
+        docs = [Document(i, f"https://www.s{{i % 5}}.de/{{i}}", f"t{{i}}", t)
+                for i, t in enumerate(texts)]
+        cfg = Config(embedding_dim=32, window_size=32, step_size=25,
+                     top_k_retrieval=20, top_k_reranking=5)
+        enc = HashingEncoder(dim=32)
+        save_artifacts(IndexBuilder(enc, cfg).build(docs), {str(tmp_path)!r})
+        art = load_artifacts({str(tmp_path)!r})
+        eng = SearchEngine(art, enc, cfg, device="cpu", bank_dtype="int8")
+        srv = web.ServerThread(SearchService(eng).build_app()).start()
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+            c.request("POST", "/api/search",
+                      json.dumps({{"query": texts[7], "top_k": 3}}))
+            r = c.getresponse()
+            docs = json.loads(r.read())["documents"]
+            assert r.status == 200 and docs[0]["doc_id"] == "7", docs
+            c.close()
+        finally:
+            srv.stop()
         loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
                   or m.startswith("modern_search_engines_project_tpu.")]
         assert not loaded, loaded
