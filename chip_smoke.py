@@ -77,6 +77,22 @@ non-zero exit):
      subprocess on a saved 10,000-doc cut with --int8-bank and
      --fastpath-port (both planes the same docs, exit 0 or -15 on
      SIGTERM);
+  5e. the offline path at full width (12 layers, 768 wide; warm-started
+     from runs/encoder-real where it is present, else from --seed):
+     stage A InfoNCE at B = 256, L = 128, hard negatives mined with the
+     trained tower, stage B InfoNCE with them at B = 160, cosine steps
+     (warm step ms, tokens/s, bound, device busy and idle share, peak
+     memory); one step at B = 8, L = 32 on the card against the CPU port
+     (from the trained tree, the loss and every gradient leaf in f32 and
+     the loss in bf16; from a tree drawn from --seed, the loss and every
+     gradient leaf in bf16); save_encoder in f16
+     and two reloads; BuildPipeline over 2,000 docs in shards of 512, a
+     deleted shard resumed, and the index CLI as a subprocess over a
+     CrawlStore (the same artifacts); search_batch on the built index at
+     B = 1, 16, 64 (launches as in 5, the numpy oracle); the
+     cross-encoder trainer and its save, save_decoder, and the training
+     CLI at its defaults as a subprocess; outputs under
+     build/offline_smoke/;
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
      slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
@@ -95,6 +111,7 @@ import dataclasses
 import http.client
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -107,9 +124,12 @@ import torch
 
 from modern_search_engines_project_tpu_torch import bench_kernels
 from modern_search_engines_project_tpu_torch.config import Config
+from modern_search_engines_project_tpu_torch.crawler import CrawlStore
 from modern_search_engines_project_tpu_torch.index import (
+    BuildPipeline,
     Document,
     IndexBuilder,
+    load_artifacts,
     save_artifacts,
 )
 from modern_search_engines_project_tpu_torch.kernel_times import device_ms
@@ -120,10 +140,21 @@ from modern_search_engines_project_tpu_torch.models import (
     GreedyGenerator,
     HashingEncoder,
     TorchEncoder,
+    TrainConfig,
+    Trainer,
     WordVocab,
+    cross_encoder_params_to_reference,
     init_cross_encoder_params,
     init_decoder_params,
     init_reference_params,
+    load_decoder,
+    load_encoder,
+    mine_hn_triples,
+    params_to_reference,
+    read_checkpoint,
+    save_decoder,
+    save_encoder,
+    train_cross_encoder,
 )
 from modern_search_engines_project_tpu_torch.models.decoder import build_decoder
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
@@ -979,6 +1010,24 @@ def check_sync_free(fn, what):
     return out
 
 
+def synthetic_docs(rng, words, dfs, n_docs, first_id=0):
+    """``n_docs`` documents of 200-700 df-drawn words of the phase-3
+    corpus, ids from ``first_id``."""
+    p = dfs[1:] / dfs[1:].sum()  # df-weighted draws of terms 1..
+    lens = rng.integers(200, 700, n_docs)
+    ids = 1 + rng.choice(len(p), int(lens.sum()), p=p)
+    return [Document(first_id + i, f"https://www.s{i % 97}.de/p{i}", f"t{i}",
+                     " ".join(words[j] for j in part))
+            for i, part in enumerate(np.split(ids, np.cumsum(lens)[:-1]))]
+
+
+def rare_terms_queries(docs, words, dfs, rng, B, n_terms=3):
+    """B queries of the ``n_terms`` rarest words of B distinct docs."""
+    df_of = dict(zip(words, dfs))
+    return [" ".join(sorted(set(docs[i].text.split()), key=df_of.get)[:n_terms])
+            for i in rng.choice(len(docs), B, replace=False)]
+
+
 def encoder_phase(seed, art, words, dfs, cfg, slot_batches, name, smi,
                   enc_cfg=None, n_docs=2_000):
     """The trained bi-encoder's path at full width (``EncoderConfig()``:
@@ -1110,12 +1159,7 @@ def encoder_phase(seed, art, words, dfs, cfg, slot_batches, name, smi,
     del eng
 
     # (e) an index embedded by the encoder on the card
-    p = dfs[1:] / dfs[1:].sum()  # df-weighted draws of terms 1..
-    lens = rng.integers(200, 700, n_docs)
-    ids = 1 + rng.choice(len(p), int(lens.sum()), p=p)
-    docs = [Document(i, f"https://www.s{i % 97}.de/p{i}", f"t{i}",
-                     " ".join(words[j] for j in part))
-            for i, part in enumerate(np.split(ids, np.cumsum(lens)[:-1]))]
+    docs = synthetic_docs(rng, words, dfs, n_docs)
     spent = [0.0, 0]
     encode = enc.encode_batch
 
@@ -1140,9 +1184,7 @@ def encoder_phase(seed, art, words, dfs, cfg, slot_batches, name, smi,
         f"({small.n_chunks / build_s:.1f} chunks/s); the encoder's share "
         f"{spent[0]:.2f} s ({spent[1] / spent[0]:.1f} chunks/s)")
     eng_small = SearchEngine(small, enc, cfg)
-    df_of = dict(zip(words, dfs))  # the 3 rarest words of 16 of the docs
-    qs = [" ".join(sorted(set(docs[i].text.split()), key=df_of.get)[:3])
-          for i in rng.choice(n_docs, 16, replace=False)]
+    qs = rare_terms_queries(docs, words, dfs, rng, 16)
     res = eng_small.search_batch(qs, top_k=10)
     check(all(len(r) > 0 for r in res), "encoder index: an empty result")
     _, _, processed = eng_small.prepare_queries(qs)
@@ -1898,6 +1940,520 @@ def serving_phase(seed, eng, art, words, dfs, cfg, enc, slot_batches, name,
     return launches
 
 
+# ---- phase 5e: the offline path (training, checkpoints, the build) ---------
+
+# Training, card against the port on the CPU: the tolerances of
+# tests/test_torch_train.py (the port against the reference on the CPU):
+# (loss atol, loss rtol, gradient leaf tolerance of its largest magnitude)
+# per dtype: f32 losses to 1e-5 and leaves to 1e-4; bf16 losses to 5e-3 of
+# their value and leaves to 5e-2 (bf16 activations an ulp apart, times
+# 1 / temperature in the InfoNCE logits).
+# The bf16 leaves are held on a tree drawn from the seed and not on a
+# trained one: in a trained tower (runs/encoder-real) attention is peaky,
+# and bf16 rounding of q and k moves the scores, so the q/k columns of the
+# attention products' gradients (and the ln1 before them) land 10-50 % of
+# their largest magnitude from the f32 gradient on the CPU port as on the
+# card, each device its own way; no fixed tolerance then tells a right
+# card from a wrong one.  There the bf16 loss is held, the f32 step holds
+# every leaf, and the leaves' bf16 distances are printed.
+TRAIN_TOL = {"float32": (1e-5, 0.0, 1e-4), "bfloat16": (0.0, 5e-3, 5e-2)}
+# The flagship recipe's shapes (tools/real_encoder.py): stage A in-batch
+# InfoNCE at B = 256, stage B with one mined negative a row at B = 160,
+# L = 128; STEPS steps a stage, then TIMED_STEPS timed warm steps a loss.
+STAGE_A_B, STAGE_B_B, TRAIN_L, STEPS, TIMED_STEPS = 256, 160, 128, 10, 3
+BUILD_DOCS, BUILD_SHARD = 2_000, 512
+# An f16 checkpoint against the f32 tower it was saved from: ~1/16 of the
+# weights round to another bf16 value through f16 (double rounding; more
+# among f16 subnormals), so unit embeddings move by up to a few 1e-3
+# (5.8e-3, cosine 0.99990, at 2 layers / 64 wide on the CPU); the reload
+# itself must equal the f16-rounded tree's embeddings exactly.  The
+# cross-encoder's sigmoid scores are held to the same 1e-2.
+F16_ATOL, F16_COS = 1e-2, 0.9995
+OFFLINE_DIR = os.path.join(ROOT, "build", "offline_smoke")
+
+
+def train_step_bound(cfg, B, L, towers):
+    """Least time of one training step of ``cfg`` on ``towers`` towers of
+    B x L tokens: 6 operations a matmul weight a token (forward, and the
+    two products of the backward) plus three times the forward's attention
+    products (4 x L^2 x dim a sequence and layer), at the bf16 tensor-core
+    peak; bytes: f32 parameters, gradients and both Adam moments read and
+    written once.  Returns (ms, "bytes" or "operations", operations)."""
+    D, Hd = cfg.dim, cfg.dim * cfg.mlp_ratio
+    w = cfg.n_layers * (3 * D * D + D * D + 2 * Hd * D + Hd * D)
+    n_par = w + cfg.vocab_size * D + (2 * cfg.n_layers + 1) * 2 * D
+    tokens = towers * B * L
+    ops = 6 * w * tokens + 3 * 4 * towers * B * L * L * D * cfg.n_layers
+    ms, by = bound(n_par * 4 * 8, ops, BF16_OPS)
+    return ms, by, ops
+
+
+def f16_rounded(tree):
+    """A reference-form tree as an f16 checkpoint holds it, in f32."""
+    if isinstance(tree, dict):
+        return {k: f16_rounded(v) for k, v in tree.items()}
+    return tree.astype(np.float16).astype(np.float32)
+
+
+def tree_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def loss_and_grads(trainer, batch):
+    trainer.model.zero_grad(set_to_none=True)
+    loss = trainer.loss(trainer.upload_batch(batch))
+    loss.backward()
+    g = {n: p.grad for n, p in trainer.model.named_parameters()}
+    return float(loss.detach()), tree_leaves(params_to_reference(g))
+
+
+def time_train_steps(trainer, batch, what, name, smi):
+    """Warm step time (host clock around a synchronised step, median of
+    TIMED_STEPS), tokens/s, one torch.profiler trace of a step, the
+    bound.  Each timed step is a real optimizer step."""
+    B, L = batch["ids1"].shape
+    towers = 3 if "ids3" in batch else 2
+    ts = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(trainer.step(batch))
+        ts.append(time.perf_counter() - t0)
+    check(np.isfinite(loss), f"{what}: loss {loss}")
+    step = float(np.median(ts))
+    real = int(sum(batch[f"mask{i}"].sum() for i in range(1, towers + 1)))
+    prof = profile_call(lambda: trainer.step(batch))
+    b_ms, b_by, ops = train_step_bound(trainer.enc_cfg, B, L, towers)
+    row = {"loss": trainer.cfg.loss, "B": B, "L": L, "towers": towers,
+           "step_ms": step * 1e3, "steps_ms": [t * 1e3 for t in ts],
+           "tokens_per_s": towers * B * L / step,
+           "real_tokens_per_s": real / step, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_tflop": ops / 1e12,
+           "share_of_bound": b_ms / (step * 1e3)}
+    if prof is None:
+        row["device_busy_ms"] = "not measured (no device events)"
+    else:
+        row.update(device_busy_ms=prof["device_busy_ms"],
+                   device_events=prof["device_events"],
+                   idle_share=prof["idle_share"],
+                   idle_share_of_step=1 - prof["device_busy_ms"] / (step * 1e3),
+                   busy_share_of_bound=b_ms / prof["device_busy_ms"],
+                   top_device_ms=prof["top_device_ms"])
+    log(f"  train step {what} on {name} ({smi}): {json.dumps(row)}")
+
+
+def step_on_both(tree, triples, dtype):
+    """The full-width tower (``infonce_hn``) on the card and on the port on
+    the CPU, same tree and batch: (card trainer, host batch, (loss,
+    gradient leaves) on the card, the same on the CPU)."""
+    cfg = dataclasses.replace(EncoderConfig(), dtype=dtype)
+    tcfg = TrainConfig(loss="infonce_hn", max_len=32)
+    card = Trainer(cfg, tcfg).init(10, params=tree)
+    cpu = Trainer(cfg, tcfg, device="cpu").init(10, params=tree)
+    batch = card.encode_pairs(triples)
+    return card, batch, loss_and_grads(card, batch), loss_and_grads(cpu, batch)
+
+
+def worst_leaf(got, want):
+    """(largest |got - want| over a leaf's largest |want|, that leaf)."""
+    worst, worst_k = 0.0, None
+    for k, w in want.items():
+        rel = float(np.abs(got[k] - w).max() / np.abs(w).max())
+        if rel > worst:
+            worst, worst_k = rel, k
+    return worst, worst_k
+
+
+def hold_step(what, dtype, card, cpu, leaves=True):
+    """The card's (loss, leaves) against the CPU port's under TRAIN_TOL;
+    the gradient leaves only with ``leaves``.  Returns the errors."""
+    (la, ga), (lb, gb) = card, cpu
+    l_abs, l_rel, g_tol = TRAIN_TOL[dtype]
+    check(np.isfinite(la) and abs(la - lb) <= l_abs + l_rel * abs(lb),
+          f"{what} {dtype}: loss {la} vs {lb}")
+    worst, worst_k = worst_leaf(ga, gb)
+    if leaves:
+        check(worst <= g_tol, f"{what} {dtype}: gradient {worst_k} off by "
+              f"{worst} of its largest magnitude (> {g_tol})")
+    return {"loss_card": la, "loss_cpu": lb, "loss_abs_err": abs(la - lb),
+            "grad_worst_rel_err": worst, "grad_worst_leaf": worst_k}
+
+
+def small_step_cost(card, batch, tree):
+    """A rate-0 step (the schedule's first) that must leave the parameters
+    as they were, then the host's cost of a step: at B = 8, L = 32 the card
+    runs each of the step's operations faster than the host enqueues it,
+    so a synchronised step's wall time is the host's enqueue of the same
+    operations."""
+    card.update()
+    qkv = card.model.blocks[0].attn.qkv.detach().cpu().numpy()
+    check(np.array_equal(qkv, tree["block0"]["attn"]["qkv"]["kernel"]),
+          f"step card {card.enc_cfg.dtype}: the rate-0 step moved the "
+          f"parameters")
+    card.step(batch)
+    ts = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.step(batch)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    prof = profile_call(lambda: card.step(batch))
+    n_ops = None if prof is None else prof["device_events"]
+    wall = float(np.median(ts)) * 1e3
+    return {"small_step_wall_ms": wall, "small_step_device_ops": n_ops,
+            "small_step_busy_ms": None if prof is None
+            else prof["device_busy_ms"],
+            "host_us_per_op": None if n_ops is None else wall * 1e3 / n_ops}
+
+
+def check_step_card_vs_cpu(trained, drawn, triples):
+    """(b): one loss and its gradients of the full-width tower on the card
+    and on the port on the CPU, same tree and batch:
+      * the trained tree in f32: the loss and every gradient leaf within
+        TRAIN_TOL;
+      * the trained tree in bf16: the loss within TRAIN_TOL; the leaves'
+        distances are printed, beside each device's distance from the f32
+        gradient, and not held (the note at TRAIN_TOL says why);
+      * ``drawn`` (weights drawn from the seed, the same widths) in bf16:
+        the loss and every gradient leaf within TRAIN_TOL;
+    then a rate-0 step and the small step's host cost in each dtype.
+    Returns the errors and costs."""
+    out = {}
+    card, batch, ga, gb = step_on_both(trained, triples, "float32")
+    out["trained float32"] = hold_step("step card vs cpu, trained tree",
+                                       "float32", ga, gb)
+    out["trained float32"].update(small_step_cost(card, batch, trained))
+    f32 = gb[1]
+    del card
+    card, batch, ga, gb = step_on_both(trained, triples, "bfloat16")
+    row = hold_step("step card vs cpu, trained tree", "bfloat16", ga, gb,
+                    leaves=False)
+    for who, g in (("card", ga[1]), ("cpu", gb[1])):
+        row[f"{who}_bf16_vs_f32_worst_rel_err"], row[
+            f"{who}_bf16_vs_f32_worst_leaf"] = worst_leaf(g, f32)
+    row.update(small_step_cost(card, batch, trained))
+    out["trained bfloat16"] = row
+    del card
+    _, _, ga, gb = step_on_both(drawn, triples, "bfloat16")
+    out["drawn bfloat16"] = hold_step("step card vs cpu, drawn tree",
+                                      "bfloat16", ga, gb)
+    return out
+
+
+def training_phase(seed, words, dfs, cfg, name, smi):
+    """Phase 5e, the offline path at the flagship's full width
+    (``EncoderConfig()``: 12 layers, 768 wide; warm-started from
+    runs/encoder-real where that checkpoint is present, else weights drawn
+    from ``seed``):
+      (a) stage A ``infonce`` at B = 256, L = 128 on (query, window) pairs
+          of the phase-3 corpus (window text from ``SyntheticWindows``, the
+          query its 3 rarest words), ``mine_hn_triples`` with the trained
+          tower, stage B ``infonce_hn`` at B = 160, and ``cosine`` steps
+          at B = 256; warm step ms, tokens/s, the bound, device busy and
+          idle share of one traced step, peak memory;
+      (b) one full-width step (B = 8, L = 32, ``infonce_hn``) on the card
+          against the port on the CPU: from the trained tree in f32, loss
+          and every gradient leaf within TRAIN_TOL; in bf16 the loss, the
+          leaves printed beside each device's distance from f32; from a
+          tree drawn from ``seed`` in bf16, loss and every leaf within
+          TRAIN_TOL (``check_step_card_vs_cpu``);
+      (c) ``save_encoder`` in f16, reloaded twice by the port's reader:
+          one digest, embeddings equal to those of the f16-rounded tree
+          and within f16 rounding of the trained tower's (F16_ATOL,
+          cosine F16_COS);
+      (d) ``BuildPipeline`` with the reloaded encoder over BUILD_DOCS docs
+          in shards of BUILD_SHARD; one shard deleted and the build rerun
+          (resume): the same artifacts; then the index CLI as a subprocess
+          over a ``CrawlStore`` of the same docs with ``--encoder <ckpt>``:
+          the same artifacts;
+      (e) ``search_batch`` on the built index with the trained query
+          encoder at B = 1 / 16 / 64 (launches checked as in phase 5,
+          top-10 against the numpy oracle fed the card's query vectors);
+      (f) ``train_cross_encoder`` at ``CE_CFG`` (B = 16, L = 192), ``save``
+          and ``from_checkpoint``; ``save_decoder`` and ``load_decoder``
+          (runs/summarizer-real where present, else ``DEC_CFG`` from the
+          seed), the same greedy tokens; ``train_cli`` at its defaults as
+          a subprocess (12L/768d, 2,048 synthetic pairs, 5 negatives).
+    Returns the launch counts of the (e) batches."""
+    t_phase = time.time()
+    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    os.makedirs(OFFLINE_DIR)
+    rng = np.random.default_rng(seed + 6)
+    enc_cfg = EncoderConfig()
+    real = os.path.join(ROOT, "runs", "encoder-real")
+    t0 = time.time()
+    if os.path.exists(os.path.join(real, "params.msgpack")):
+        tree, real_cfg = load_encoder(real)
+        check(real_cfg == enc_cfg, f"runs/encoder-real: {real_cfg}")
+        start = "runs/encoder-real"
+    else:
+        tree = init_reference_params(
+            enc_cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+        start = f"weights drawn from seed {seed} (runs/ absent)"
+    log(f"training: {enc_cfg}; warm start from {start} in "
+        f"{time.time() - t0:.1f} s")
+
+    # (a) the recipe's two stages, then cosine steps
+    n_pairs = STAGE_A_B * STEPS
+    windows = SyntheticWindows(seed + 6, words, dfs, n_pairs)
+    df_of = dict(zip(words, dfs))
+    pairs = []
+    for i in range(n_pairs):
+        w = windows[i]
+        pairs.append((" ".join(sorted(set(w[:-1].replace(". ", " ").split()),
+                                      key=df_of.get)[:3]), w))
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(enc_cfg, TrainConfig(loss="infonce", batch_size=STAGE_A_B,
+                                      max_len=TRAIN_L, learning_rate=2e-5))
+    tr.init(STEPS + TIMED_STEPS + 1, params=tree)
+    t0 = time.time()
+    losses_a = tr.train([(q, p, 1.0) for q, p in pairs])
+    t_a = time.time() - t0
+    check(len(losses_a) == STEPS and np.isfinite(losses_a).all(),
+          f"stage A losses {losses_a}")
+    time_train_steps(
+        tr, tr.encode_pairs([(q, p, 1.0) for q, p in pairs[:STAGE_A_B]]),
+        "stage A infonce", name, smi)
+    t0 = time.time()
+    hn = mine_hn_triples(tr.to_encoder(batch_size=256), pairs)
+    t_mine = time.time() - t0
+    check(len(hn) >= STAGE_B_B * STEPS, f"mined {len(hn)} triples")
+    trained = tr.params
+    del tr
+    tr_b = Trainer(enc_cfg, TrainConfig(loss="infonce_hn",
+                                        batch_size=STAGE_B_B, max_len=TRAIN_L))
+    tr_b.init(STEPS + TIMED_STEPS + 1, params=trained)
+    t0 = time.time()
+    losses_b = tr_b.train(hn[: STAGE_B_B * STEPS])
+    t_b = time.time() - t0
+    check(len(losses_b) == STEPS and np.isfinite(losses_b).all(),
+          f"stage B losses {losses_b}")
+    time_train_steps(
+        tr_b, tr_b.encode_pairs(hn[:STAGE_B_B]), "stage B infonce_hn", name,
+        smi)
+    trained = tr_b.params
+    del tr_b
+    tr_c = Trainer(enc_cfg, TrainConfig(loss="cosine", batch_size=STAGE_A_B,
+                                        max_len=TRAIN_L))
+    tr_c.init(TIMED_STEPS + 1, params=trained)
+    cos_trip = [(q, p, 1.0) if i % 2 else (q, pairs[i - 1][1], 0.0)
+                for i, (q, p) in enumerate(pairs[:STAGE_A_B])]
+    time_train_steps(tr_c, tr_c.encode_pairs(cos_trip), "cosine", name, smi)
+    del tr_c
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  stage A: {STEPS} steps in {t_a:.1f} s (pre-tokenizing included), "
+        f"losses {[round(x, 4) for x in losses_a]}; mining {len(pairs)} "
+        f"queries against {len(set(p for _, p in pairs))} passages: "
+        f"{t_mine:.2f} s, {len(hn)} triples; stage B: {STEPS} steps in "
+        f"{t_b:.1f} s, losses {[round(x, 4) for x in losses_b]}; peak device "
+        f"memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+    # (b) one step on the card against the port on the CPU
+    t0 = time.time()
+    small = [(q[:60], p[:300], n[:300]) for q, p, n in hn[:8]]
+    drawn_rng = np.random.default_rng(seed + 7)
+    drawn = init_reference_params(
+        enc_cfg, lambda s: drawn_rng.standard_normal(s, dtype=np.float32))
+    errs = check_step_card_vs_cpu(trained, drawn, small)
+    del drawn
+    log(f"  one full-width step (B = 8, L = 32, infonce_hn), card vs the "
+        f"port on the cpu (tolerances {TRAIN_TOL}): {json.dumps(errs)} "
+        f"({time.time() - t0:.1f} s)")
+
+    # (c) save in f16, reload
+    ckpt = os.path.join(OFFLINE_DIR, "encoder")
+    t0 = time.time()
+    save_encoder(trained, enc_cfg, ckpt, dtype="float16")
+    t_save = time.time() - t0
+    live = TorchEncoder(enc_cfg, params=trained)
+    held = TorchEncoder(enc_cfg, params=f16_rounded(trained))
+    del trained
+    enc = TorchEncoder.from_checkpoint(ckpt)
+    again = TorchEncoder.from_checkpoint(ckpt)
+    check(enc.params_digest() == again.params_digest() == held.params_digest(),
+          "reloaded checkpoint: digests differ")
+    texts = [q for q, _ in pairs[:32]] + [windows[i] for i in range(32)]
+    got, want = enc.encode_batch(texts), live.encode_batch(texts)
+    check(np.array_equal(got, again.encode_batch(texts))
+          and np.array_equal(got, held.encode_batch(texts)),
+          "the reloads and the f16-rounded tree embed differently")
+    e = float(np.abs(got - want).max())
+    cos = float((got * want).sum(1).min())
+    check(e <= F16_ATOL and cos >= F16_COS,
+          f"reloaded encoder vs trained: max |d| {e}, min cos {cos}")
+    del live, again, held
+    log(f"  save_encoder f16: "
+        f"{os.path.getsize(os.path.join(ckpt, 'params.msgpack')) / 1e6:.1f} "
+        f"MB in {t_save:.2f} s; reloaded twice: digest "
+        f"{enc.params_digest()}, embeddings equal to the f16-rounded tree's "
+        f"and within max |d| {e:.6f}, min cos {cos:.6f} of the trained "
+        f"tower's")
+
+    # (d) the sharded build, its resume, and the CLI
+    docs = synthetic_docs(rng, words, dfs, BUILD_DOCS, first_id=1)
+    out = os.path.join(OFFLINE_DIR, "pipeline")
+    t0 = time.time()
+    built = BuildPipeline(enc, out, cfg, shard_size=BUILD_SHARD).build(docs)
+    t_build = time.time() - t0
+    check(built.n_docs == BUILD_DOCS and np.isfinite(built.chunk_emb).all()
+          and built.encoder_meta["ckpt"] == ckpt,
+          f"pipeline: {built.n_docs} docs, meta {built.encoder_meta}")
+    os.remove(os.path.join(out, "shards", "shard_00002.pkl"))
+    t0 = time.time()
+    resumed = BuildPipeline(enc, out, cfg, shard_size=BUILD_SHARD).build(docs)
+    t_resume = time.time() - t0
+    same_build(resumed, built, "resumed build")
+    db = os.path.join(OFFLINE_DIR, "crawl.sqlite")
+    store = CrawlStore(db)
+    store.upsert_documents({"url": d.url, "title": d.title, "text": d.text}
+                           for d in docs)
+    store.close()
+    cli_out = os.path.join(OFFLINE_DIR, "cli_index")
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "modern_search_engines_project_tpu_torch.index",
+         "--db", db, "--out", cli_out, "--shard-size", str(BUILD_SHARD),
+         "--encoder", ckpt], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    t_cli = time.time() - t0
+    check(run.returncode == 0, f"index CLI: exit {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    same_build(load_artifacts(cli_out), built, "index CLI")
+    log(f"  BuildPipeline on {name} ({smi}): {BUILD_DOCS} docs, "
+        f"{built.n_chunks} windows, {BUILD_DOCS // BUILD_SHARD + 1} shards of "
+        f"{BUILD_SHARD}: {t_build:.2f} s ({BUILD_DOCS / t_build:.1f} docs/s, "
+        f"{built.n_chunks / t_build:.1f} windows/s); one shard deleted and "
+        f"resumed in {t_resume:.2f} s, the same artifacts; the index CLI "
+        f"(--encoder <ckpt>) as a subprocess: {t_cli:.1f} s wall, the same "
+        f"artifacts")
+
+    # (e) serve the built index with the trained query encoder
+    eng = SearchEngine(built, enc, cfg)
+    batches = {f"B={B}": rare_terms_queries(docs, words, dfs, rng, B)
+               for B in (1, 16, 64)}
+    tids, _, _ = eng.prepare_queries(batches["B=64"])
+    n_u = int(np.unique(tids[tids >= 0]).size)
+    check(128 < n_u <= 1024, f"built index B=64: {n_u} distinct terms")
+    want_bm25 = {"B=1": "bm25_slots", "B=16": "bm25_slots_udedup_sublane",
+                 "B=64": "bm25_slots_udedup_i8"}
+    results, launches = drive(eng, batches, want_bm25, "built index")
+    for key, qs in batches.items():
+        _, _, processed = eng.prepare_queries(qs)
+        qn = eng.encode_queries(processed).cpu().numpy()
+        same_as_oracle(built, None, cfg, results[key], qs[:3],
+                       f"built index {key}", qvecs=qn)
+    log("  built index served at B = 1, 16, 64: launches as in phase 5, "
+        "top-10 == numpy oracle (the card's query vectors) on 3 queries "
+        "of each batch")
+    del eng, enc
+
+    other_trainers(seed, pairs, name, smi)
+    log(f"  training and build phase: {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def same_build(got, want, what):
+    """Two builds of the same docs with the same encoder on the card: every
+    array and list equal, embeddings to 1e-6."""
+    for f in ("indptr", "post_docs", "post_impact", "idf", "df", "doc_len",
+              "chunk_doc", "doc_chunk_start", "doc_n_chunks"):
+        check(np.array_equal(np.asarray(getattr(got, f)),
+                             np.asarray(getattr(want, f))), f"{what}: {f}")
+    for f in ("doc_ids", "urls", "titles", "snippets", "window_texts"):
+        check(list(getattr(got, f)) == list(getattr(want, f)), f"{what}: {f}")
+    check(got.encoder_meta == want.encoder_meta and got.avgdl == want.avgdl,
+          f"{what}: encoder_meta {got.encoder_meta}")
+    e = float(np.abs(got.chunk_emb - want.chunk_emb).max())
+    check(e <= 1e-6, f"{what}: chunk_emb max |d| {e}")
+
+
+def other_trainers(seed, pairs, name, smi):
+    """(f) the cross-encoder trainer and its writer, the decoder's writer,
+    and the training CLI."""
+    rng = np.random.default_rng(seed + 7)
+    trip = []
+    for i, (q, p) in enumerate(pairs[:64]):
+        trip += [(q, p, 1.0), (q, pairs[(i + 31) % len(pairs)][1], 0.0)]
+    t0 = time.time()
+    ce, losses = train_cross_encoder(trip, CE_CFG, batch_size=16,
+                                     max_len=CE_CFG.max_len, seed=seed)
+    t_ce = time.time() - t0
+    check(len(losses) == len(trip) // 16 and np.isfinite(losses).all(),
+          f"cross-encoder losses {losses}")
+    path = os.path.join(OFFLINE_DIR, "cross_encoder")
+    ce.save(path)
+    a = CrossEncoderReranker.from_checkpoint(path)
+    b = CrossEncoderReranker.from_checkpoint(path)
+    held = CrossEncoderReranker(CE_CFG, params=f16_rounded(
+        cross_encoder_params_to_reference(ce.model)))
+    q, cands = trip[0][0], [t for _, t, _ in trip[:32]]
+    sa, live = a.rescore(q, cands), ce.rescore(q, cands)
+    check(np.array_equal(sa, b.rescore(q, cands))
+          and np.array_equal(sa, held.rescore(q, cands)),
+          "cross-encoder: the reloads and the f16-rounded tree score "
+          "differently")
+    e = float(np.abs(sa - live).max())
+    check(e <= F16_ATOL, f"cross-encoder reloaded vs trained: {e}")
+    log(f"  train_cross_encoder at {CE_CFG.n_layers}L/{CE_CFG.dim}d, B = 16, "
+        f"L = {CE_CFG.max_len}: {len(losses)} steps in {t_ce:.1f} s, losses "
+        f"{[round(x, 4) for x in losses]}; saved (f16) and reloaded twice: "
+        f"scores equal to the f16-rounded tree's, {e:.6f} from the trained "
+        f"reranker's")
+    del ce, a, b, held
+
+    summ = os.path.join(ROOT, "runs", "summarizer-real")
+    if os.path.exists(os.path.join(summ, "params.msgpack")):
+        tree, conf = read_checkpoint(summ)
+        dcfg = DecoderConfig(**conf)
+        vocab = WordVocab.load(os.path.join(summ, "vocab.json"))
+        src = "runs/summarizer-real"
+    else:  # as a checkpoint holds it: f16-rounded
+        dcfg, src = DEC_CFG, f"DEC_CFG drawn from seed {seed}"
+        tree = f16_rounded(init_decoder_params(
+            dcfg, lambda s: rng.standard_normal(s, dtype=np.float32)))
+        vocab = WordVocab.build([" ".join(p for _, p in pairs[:200])],
+                                max_words=dcfg.vocab_size)
+    model = build_decoder(dcfg, tree, resolve_device())
+    path = os.path.join(OFFLINE_DIR, "decoder")
+    save_decoder(tree, dcfg, path, vocab=vocab)
+    loaded, cfg2, vocab2 = load_decoder(path)
+    check(cfg2 == dcfg and vocab2.words == vocab.words,
+          "save_decoder: config or vocab changed")
+    prompt = vocab.encode(pairs[0][1])[:100]
+    want = GreedyGenerator(model).generate([prompt], 48)
+    got = GreedyGenerator(loaded).generate([prompt], 48)
+    check(np.array_equal(got, want), "save_decoder: greedy tokens changed")
+    log(f"  save_decoder of {src} ({dcfg.n_layers}L/{dcfg.dim}d) and "
+        f"load_decoder: the same 48 greedy tokens")
+    del model, loaded
+
+    t0 = time.time()
+    out = os.path.join(OFFLINE_DIR, "cli_encoder")
+    run = subprocess.run(
+        [sys.executable, "-m",
+         "modern_search_engines_project_tpu_torch.models.train_cli",
+         "--out", out], cwd=ROOT, capture_output=True, text=True,
+        timeout=900)
+    t_cli = time.time() - t0
+    check(run.returncode == 0,
+          f"train_cli: exit {run.returncode}: {run.stderr[-2000:]}")
+    tail = [ln for ln in run.stderr.splitlines() if "INFO:train" in ln]
+    cli_enc = TorchEncoder.from_checkpoint(out)
+    check(cli_enc.cfg == EncoderConfig()
+          and np.isfinite(cli_enc.encode_batch(["castle neckar"])).all(),
+          f"train_cli checkpoint: {cli_enc.cfg}")
+    log(f"  train_cli at its defaults (12L/768d, 2,048 synthetic pairs, 5 "
+        f"negatives, cosine, B = 256) on {name}: exit 0 in {t_cli:.1f} s "
+        f"wall; {tail}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2031,6 +2587,10 @@ def main(argv=None) -> int:
     # --- phase 5d: the serving surface ------------------------------------
     launches["serving"] = serving_phase(args.seed, eng, art, words, dfs, cfg,
                                         enc, slot_batches, name, smi)
+
+    # --- phase 5e: training, checkpoints and the sharded build --------------
+    launches["training"] = training_phase(args.seed, words, dfs, cfg, name,
+                                          smi)
 
     # --- phase 6: small phases ----------------------------------------------
     check_empty_index(cfg, enc)

@@ -9,9 +9,15 @@ from modern_search_engines_project_tpu_torch.index.builder import (
     extract_domain,
     make_snippet,
 )
+from modern_search_engines_project_tpu_torch.index.pipeline import (
+    BuildPipeline,
+    DataParallelEncoder,
+)
 from modern_search_engines_project_tpu_torch.index.vocab import TermDictionary
 
 __all__ = [
+    "BuildPipeline",
+    "DataParallelEncoder",
     "Document",
     "IndexArtifacts",
     "IndexBuilder",

@@ -22,8 +22,8 @@ writes into ids and mask, the position counters), with no host sync
 between steps and one copy to the host at the end: the counterpart of
 the reference's one ``lax.scan`` in one jit.  Products run through
 ``torch.matmul``; this module holds no hand-written kernel (the
-reference's products are XLA einsums, not Pallas kernels).  Writing
-checkpoints (``save_decoder``) waits for training.
+reference's products are XLA einsums, not Pallas kernels).
+``save_decoder`` writes the reference's checkpoint form.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from torch import nn
 
 from modern_search_engines_project_tpu_torch.models.checkpoint import (
     read_checkpoint,
+    write_checkpoint,
 )
 from modern_search_engines_project_tpu_torch.models.encoder import (
     Block,
@@ -129,6 +130,17 @@ def build_decoder(cfg: DecoderConfig, tree: dict, device) -> DecoderLM:
         decoder_params_from_reference(tree, device, getattr(torch, cfg.dtype))
     )
     return model.eval()
+
+
+def save_decoder(params: dict, cfg: DecoderConfig, path: str,
+                 vocab: Optional[WordVocab] = None) -> None:
+    """Write a decoder's reference-form tree as f16 leaves with its
+    ``config.json`` (the encoder checkpoint's form), and ``vocab.json``
+    beside them when a generation vocab is given.  ``params_to_reference``
+    (``models/encoder.py``) gives a ``DecoderLM``'s tree."""
+    write_checkpoint(params, dataclasses.asdict(cfg), path, dtype="float16")
+    if vocab is not None:
+        vocab.save(os.path.join(path, "vocab.json"))
 
 
 def load_decoder(

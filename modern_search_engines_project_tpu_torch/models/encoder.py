@@ -21,6 +21,24 @@ parameters give the same embeddings to bf16 rounding:
 Products run through ``torch.matmul``; this module holds no hand-written
 kernel (the reference's products are XLA einsums, not Pallas kernels).
 
+Training (``models/train.py``) builds the modules with
+``param_dtype=torch.float32``: f32 parameters with gradients, cast to
+``cfg.dtype`` inside ``forward`` on every call, as the reference keeps
+f32 parameters and casts them per call.  Casting per call gives the bits
+of casting once, so a trained model and its inference copy agree.  The
+token table is gathered in f32 and the rows cast after the gather (the
+same forward bits), so its gradient accumulates in f32; the reference
+casts the whole table first and scatter-adds the rows' gradients in bf16.
+A trainable ``BiEncoder`` recomputes each block's activations in the
+backward (``torch.utils.checkpoint``): the f32 intermediates this
+arithmetic keeps (LayerNorm statistics, RoPE, scores, the GeGLU
+activation) take ~136 MB a 128-token sequence at full width, ~70 GB for
+the recipe's 2 x 256 sequences a step, which would not fit one 80 GB
+card beside the optimizer; recomputing costs one more forward a step
+and gives the same bits.  ``params_to_reference`` carries the parameters
+back to the reference's tree form (for ``params_digest`` and the
+checkpoint writer).
+
 ``Attention`` and ``Block`` take a ``causal`` flag, which the decoder's
 blocks set (``models/decoder.py``, the reference's ``CausalAttention``);
 the cross-encoder (``models/cross_encoder.py``) reuses the blocks as
@@ -46,6 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     resolve_device,
@@ -86,20 +105,30 @@ def apply_rope(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
     return torch.stack([out1, out2], dim=-1).reshape(x.shape)
 
 
-def _weight(shape, dtype, device) -> nn.Parameter:
+def _weight(shape, dtype, device, trainable: bool = False) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
+
+
+def _param_dtype(cfg, param_dtype):
+    """(weight dtype, trainable): the activation dtype and frozen for
+    inference (``param_dtype=None``), else ``param_dtype`` with
+    gradients."""
+    if param_dtype is None:
+        return getattr(torch, cfg.dtype), False
+    return param_dtype, True
 
 
 class LayerNorm(nn.Module):
     """The reference's LayerNorm: f32 statistics by the fast variance,
     eps 1e-6, f32 scale and bias, output in the activation dtype."""
 
-    def __init__(self, dim: int, dtype, device=None, eps: float = 1e-6):
+    def __init__(self, dim: int, dtype, device=None, eps: float = 1e-6,
+                 trainable: bool = False):
         super().__init__()
         self.dtype, self.eps = dtype, eps
-        self.scale = _weight((dim,), torch.float32, device)
-        self.bias = _weight((dim,), torch.float32, device)
+        self.scale = _weight((dim,), torch.float32, device, trainable)
+        self.bias = _weight((dim,), torch.float32, device, trainable)
 
     def forward(self, x):
         x = x.float()
@@ -117,12 +146,14 @@ class Attention(nn.Module):
     is.  ``cfg`` is any config with ``dim``, ``n_heads``, ``max_len`` and
     ``dtype``."""
 
-    def __init__(self, cfg: EncoderConfig, device=None, causal: bool = False):
+    def __init__(self, cfg: EncoderConfig, device=None, causal: bool = False,
+                 param_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        self.qkv = _weight((cfg.dim, 3 * cfg.dim), self.dtype, device)
-        self.proj = _weight((cfg.dim, cfg.dim), self.dtype, device)
+        wdt, train = _param_dtype(cfg, param_dtype)
+        self.qkv = _weight((cfg.dim, 3 * cfg.dim), wdt, device, train)
+        self.proj = _weight((cfg.dim, cfg.dim), wdt, device, train)
         self.causal = causal
         if causal:
             self.register_buffer(
@@ -136,7 +167,8 @@ class Attention(nn.Module):
         c = self.cfg
         B, L, _ = x.shape
         hd = c.dim // c.n_heads
-        q, k, v = torch.matmul(x, self.qkv).split(c.dim, dim=-1)
+        qkv = torch.matmul(x, self.qkv.to(self.dtype))
+        q, k, v = qkv.split(c.dim, dim=-1)
         q = apply_rope(q.reshape(B, L, c.n_heads, hd), rope).to(self.dtype)
         k = apply_rope(k.reshape(B, L, c.n_heads, hd), rope).to(self.dtype)
         v = v.reshape(B, L, c.n_heads, hd)
@@ -150,33 +182,37 @@ class Attention(nn.Module):
         att = torch.softmax(att, dim=-1).to(self.dtype)
         out = torch.matmul(att.float(), v.float().transpose(1, 2))
         out = out.to(self.dtype).transpose(1, 2).reshape(B, L, c.dim)
-        return torch.matmul(out, self.proj)
+        return torch.matmul(out, self.proj.to(self.dtype))
 
 
 class GeGLU(nn.Module):
-    def __init__(self, cfg: EncoderConfig, device=None):
+    def __init__(self, cfg: EncoderConfig, device=None, param_dtype=None):
         super().__init__()
         self.dtype = getattr(torch, cfg.dtype)
+        wdt, train = _param_dtype(cfg, param_dtype)
         hidden = cfg.dim * cfg.mlp_ratio
-        self.wi = _weight((cfg.dim, 2 * hidden), self.dtype, device)
-        self.wo = _weight((hidden, cfg.dim), self.dtype, device)
+        self.wi = _weight((cfg.dim, 2 * hidden), wdt, device, train)
+        self.wo = _weight((hidden, cfg.dim), wdt, device, train)
 
     def forward(self, x):
-        gate, up = torch.matmul(x, self.wi).chunk(2, dim=-1)
+        gate, up = torch.matmul(x, self.wi.to(self.dtype)).chunk(2, dim=-1)
         act = F.gelu(gate.float(), approximate="tanh") * up.float()
-        return torch.matmul(act.to(self.dtype), self.wo)
+        return torch.matmul(act.to(self.dtype), self.wo.to(self.dtype))
 
 
 class Block(nn.Module):
-    """Pre-LayerNorm block; ``causal`` makes it the decoder's block."""
+    """Pre-LayerNorm block; ``causal`` makes it the decoder's block;
+    ``param_dtype`` as ``BiEncoder``'s."""
 
-    def __init__(self, cfg: EncoderConfig, device=None, causal: bool = False):
+    def __init__(self, cfg: EncoderConfig, device=None, causal: bool = False,
+                 param_dtype=None):
         super().__init__()
         dt = getattr(torch, cfg.dtype)
-        self.ln1 = LayerNorm(cfg.dim, dt, device)
-        self.attn = Attention(cfg, device, causal)
-        self.ln2 = LayerNorm(cfg.dim, dt, device)
-        self.mlp = GeGLU(cfg, device)
+        train = param_dtype is not None
+        self.ln1 = LayerNorm(cfg.dim, dt, device, trainable=train)
+        self.attn = Attention(cfg, device, causal, param_dtype)
+        self.ln2 = LayerNorm(cfg.dim, dt, device, trainable=train)
+        self.mlp = GeGLU(cfg, device, param_dtype)
 
     def forward(self, x, mask, rope):
         x = x + self.attn(self.ln1(x), mask, rope)
@@ -185,17 +221,23 @@ class Block(nn.Module):
 
 class BiEncoder(nn.Module):
     """token ids + mask [B, L] -> L2-normalised sentence embedding [B, dim]
-    (f32)."""
+    (f32).  ``param_dtype=None``: frozen weights in ``cfg.dtype`` (the
+    inference copy); ``torch.float32``: f32 parameters with gradients,
+    cast to ``cfg.dtype`` on every call, each block recomputed in the
+    backward (training)."""
 
-    def __init__(self, cfg: EncoderConfig, device=None):
+    def __init__(self, cfg: EncoderConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        dt = getattr(torch, cfg.dtype)
-        self.tok = _weight((cfg.vocab_size, cfg.dim), dt, device)
+        self.dtype = dt = getattr(torch, cfg.dtype)
+        wdt, train = _param_dtype(cfg, param_dtype)
+        self.recompute = train
+        self.tok = _weight((cfg.vocab_size, cfg.dim), wdt, device, train)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.n_layers)
+            Block(cfg, device, param_dtype=param_dtype)
+            for _ in range(cfg.n_layers)
         )
-        self.ln_f = LayerNorm(cfg.dim, dt, device)
+        self.ln_f = LayerNorm(cfg.dim, dt, device, trainable=train)
         rope = _rope_angles(cfg.dim // cfg.n_heads, cfg.max_len, cfg.rope_base)
         self.register_buffer(
             "rope", torch.tensor(rope, dtype=torch.float32, device=device),
@@ -203,10 +245,12 @@ class BiEncoder(nn.Module):
         )
 
     def forward(self, ids, mask):
-        x = F.embedding(ids, self.tok)
+        x = F.embedding(ids, self.tok).to(self.dtype)  # gather, then cast
         bool_mask = mask > 0
+        recompute = self.recompute and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, bool_mask, self.rope)
+            x = (checkpoint(blk, x, bool_mask, self.rope, use_reentrant=False)
+                 if recompute else blk(x, bool_mask, self.rope))
         x = self.ln_f(x)
         # mean pooling over valid tokens, in f32
         m = mask[..., None].float()
@@ -301,6 +345,38 @@ def params_from_reference(tree: dict, device, dtype=torch.bfloat16) -> dict:
             for n in names:
                 out[f"{p}{mod}.{n}"] = w(b[mod][n]["kernel"])
     return out
+
+
+def params_to_reference(module) -> dict:
+    """The inverse of ``params_from_reference``: a ``BiEncoder`` (or its
+    state dict, or a dict of its parameters' gradients under the same
+    names) -> the reference's tree, a nested dict of f32 numpy copies with
+    Dense kernels [in, out], its keys in the order the reference's init
+    creates them (``tok``; ``block{i}`` with ``ln1``, ``attn``, ``ln2``,
+    ``mlp``; ``ln_f``), which is the order its serializer writes."""
+    sd = module.state_dict() if isinstance(module, nn.Module) else module
+
+    def a(key):
+        return sd[key].detach().to("cpu", torch.float32, copy=True).numpy()
+
+    def ln(prefix):
+        return {"scale": a(prefix + ".scale"), "bias": a(prefix + ".bias")}
+
+    tree = {"tok": {"embedding": a("tok")}}
+    n_layers = sum(1 for k in sd if k.startswith("blocks.")
+                   and k.endswith(".ln1.scale"))
+    for i in range(n_layers):
+        p = f"blocks.{i}."
+        tree[f"block{i}"] = {
+            "ln1": ln(p + "ln1"),
+            "attn": {"qkv": {"kernel": a(p + "attn.qkv")},
+                     "proj": {"kernel": a(p + "attn.proj")}},
+            "ln2": ln(p + "ln2"),
+            "mlp": {"wi": {"kernel": a(p + "mlp.wi")},
+                    "wo": {"kernel": a(p + "mlp.wo")}},
+        }
+    tree["ln_f"] = ln("ln_f")
+    return tree
 
 
 # ---- the encode_batch protocol ---------------------------------------------

@@ -1,0 +1,107 @@
+"""Training entry point (the upstream ``embedder_training/train.py``).
+
+    python -m modern_search_engines_project_tpu_torch.models.train_cli \
+        [--pairs pairs.tsv] [--out runs/encoder] [--epochs 1] \
+        [--batch-size 256] [--device cuda|cpu]
+
+Counterpart of the reference package's ``models/train_cli.py``, with every
+flag of it plus ``--device`` (the card unless ``--device cpu``; with no
+card and no ``--device cpu`` it exits with an error).  Without --pairs it
+trains on deterministic synthetic pairs (air-gapped default).  Hard
+negatives are mined with the untrained encoder, labels are binary, the
+loss is CosineSimilarityLoss, the optimizer AdamW with 10% linear warmup.
+``--dp`` / ``--tp`` above 1 exit non-zero: the dp x tp step is not ported
+(ROADMAP section 1, item 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--pairs", default=None, help="TSV query\\tpassage")
+    parser.add_argument("--limit", type=int, default=10_000)
+    parser.add_argument("--out", default="runs/encoder")
+    parser.add_argument("--epochs", type=int, default=1)
+    parser.add_argument("--batch-size", type=int, default=256)
+    parser.add_argument("--lr", type=float, default=2e-5)
+    parser.add_argument("--negatives", type=int, default=5)
+    parser.add_argument("--max-len", type=int, default=128)
+    parser.add_argument("--dim", type=int, default=768)
+    parser.add_argument("--layers", type=int, default=12)
+    parser.add_argument("--dp", type=int, default=0, help="data-parallel axis")
+    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel axis")
+    parser.add_argument("--synthetic", type=int, default=2048)
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args(argv)
+    if args.dp > 1 or args.tp > 1:
+        parser.error("--dp / --tp above 1: the dp x tp training step is not "
+                     "ported to the GPU yet (ROADMAP section 1, item 7)")
+
+    logging.basicConfig(level=logging.INFO)
+    log = logging.getLogger("train")
+
+    from modern_search_engines_project_tpu_torch.models.checkpoint import (
+        save_encoder,
+    )
+    from modern_search_engines_project_tpu_torch.models.data import (
+        load_pairs_tsv,
+        make_triples,
+        synthetic_pairs,
+    )
+    from modern_search_engines_project_tpu_torch.models.encoder import (
+        EncoderConfig,
+        TorchEncoder,
+    )
+    from modern_search_engines_project_tpu_torch.models.train import (
+        TrainConfig,
+        Trainer,
+    )
+    from modern_search_engines_project_tpu_torch.retrieval.device_index import (
+        resolve_device,
+    )
+
+    device = resolve_device(args.device)
+    pairs = (
+        load_pairs_tsv(args.pairs, args.limit)
+        if args.pairs
+        else synthetic_pairs(args.synthetic)
+    )
+    log.info("loaded %d pairs", len(pairs))
+
+    enc_cfg = EncoderConfig(
+        dim=args.dim,
+        n_layers=args.layers,
+        n_heads=max(1, args.dim // 64),
+        max_len=512,
+    )
+    mining_encoder = TorchEncoder(enc_cfg, max_len=args.max_len, device=device)
+    t0 = time.time()
+    triples = make_triples(pairs, mining_encoder, num_negatives=args.negatives)
+    log.info("mined %d triples in %.1fs", len(triples), time.time() - t0)
+    del mining_encoder
+
+    tcfg = TrainConfig(
+        learning_rate=args.lr,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        num_negatives=args.negatives,
+        max_len=args.max_len,
+    )
+    trainer = Trainer(enc_cfg, tcfg, device=device)
+    t0 = time.time()
+    losses = trainer.train(triples)
+    log.info(
+        "trained %d steps in %.1fs: loss %.4f -> %.4f",
+        len(losses), time.time() - t0, losses[0], losses[-1],
+    )
+    save_encoder(trainer.params, enc_cfg, args.out)
+    log.info("saved encoder to %s", args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -1256,3 +1256,159 @@ def test_data_plane_over_card_engine(cuda):
         assert srv.stats()["served"] == 24
     finally:
         srv.stop()
+
+
+# ---- training and checkpoints on the card ---------------------------------
+
+# Losses and gradient leaves, card against the CPU port: the tolerances of
+# tests/test_torch_train.py (the port against the reference on the CPU):
+# f32 losses to 1e-5, f32 gradient leaves to 1e-4 of their largest
+# magnitude; bf16 losses to 5e-3 of their value, bf16 leaves to 5e-2.
+TRAIN_TOL = {"float32": (1e-5, 0.0, 1e-4), "bfloat16": (0.0, 5e-3, 5e-2)}
+
+
+def _train_triples(loss, seed, B=8):
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}q" for i in range(400)]
+    qs, ps, ns = ([" ".join(rng.choice(words, n)) for _ in range(B)]
+                  for n in (4, 30, 25))
+    qs[3], ps[5], ns[4] = qs[1], ps[2], ps[4]  # duplicates, false negative
+    if loss == "infonce_hn":
+        return list(zip(qs, ps, ns))
+    return [(q, p, float(i % 2)) for i, (q, p) in enumerate(zip(qs, ps))]
+
+
+def _flat(tree, prefix=""):
+    """{"block0/attn/qkv/kernel": leaf, ...} of a reference-form tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _grads(trainer, batch):
+    from modern_search_engines_project_tpu_torch.models import (
+        params_to_reference,
+    )
+
+    trainer.model.zero_grad(set_to_none=True)
+    loss = trainer.loss(trainer.upload_batch(batch))
+    loss.backward()
+    g = {n: p.grad for n, p in trainer.model.named_parameters()}
+    return float(loss.detach()), _flat(params_to_reference(g))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("loss", ["cosine", "infonce", "infonce_hn"])
+def test_train_step_on_card_matches_cpu(cuda, dtype, loss):
+    """One loss and its gradients on the card against the port on the CPU,
+    same tree and batch; then two optimizer updates from the same
+    gradients."""
+    from modern_search_engines_project_tpu_torch.models import (
+        TrainConfig,
+        Trainer,
+    )
+
+    cfg = EncoderConfig(vocab_size=8192, dim=128, n_layers=2, n_heads=4,
+                        max_len=64, dtype=dtype)
+    rng = np.random.default_rng(1)
+    tree = init_reference_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    tcfg = TrainConfig(loss=loss, max_len=48, learning_rate=1e-3)
+    card = Trainer(cfg, tcfg).init(10, params=tree)
+    cpu = Trainer(cfg, tcfg, device="cpu").init(10, params=tree)
+    assert card.device.type == "cuda"
+    batch = card.encode_pairs(_train_triples(loss, 2))
+    (la, ga), (lb, gb) = _grads(card, batch), _grads(cpu, batch)
+    l_abs, l_rel, g_tol = TRAIN_TOL[dtype]
+    assert np.isfinite(la) and abs(la - lb) <= l_abs + l_rel * abs(lb)
+    for k in gb:
+        assert np.abs(ga[k] - gb[k]).max() <= g_tol * np.abs(gb[k]).max(), k
+    # the optimizer on the same gradients (Adam's normalised step would
+    # turn a near-zero gradient's rounding into up to the rate a step):
+    # step 0 (rate 0) leaves the parameters as they were, step 1 moves
+    # both alike
+    grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    for n, p in card.model.named_parameters():
+        p.grad = grads[n].to(p.device)
+    for _ in range(2):
+        card.update()
+        cpu.update()
+    pa, pb = _flat(card.params), _flat(cpu.params)
+    for k in pb:
+        assert np.abs(pa[k] - pb[k]).max() <= 1e-6, k
+
+
+def test_training_save_reload_on_card(cuda, tmp_path):
+    """A few steps on the card, ``save_encoder`` in f16, reloaded on the
+    card twice and on the CPU: the same digest, embeddings within f16
+    rounding of the in-memory trained encoder's."""
+    from modern_search_engines_project_tpu_torch.models import (
+        TrainConfig,
+        Trainer,
+        save_encoder,
+    )
+
+    cfg = EncoderConfig(vocab_size=8192, dim=128, n_layers=2, n_heads=4,
+                        max_len=64)
+    tr = Trainer(cfg, TrainConfig(loss="infonce", batch_size=8, max_len=48,
+                                  learning_rate=1e-3))
+    losses = tr.train(_train_triples("infonce", 3) * 3)
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    path = str(tmp_path / "ck")
+    save_encoder(tr.params, cfg, path, dtype="float16")
+    a = TorchEncoder.from_checkpoint(path)
+    b = TorchEncoder.from_checkpoint(path)
+    c = TorchEncoder.from_checkpoint(path, device="cpu")
+    assert a.params_digest() == b.params_digest() == c.params_digest()
+    texts = [t for t, _, _ in _train_triples("cosine", 4)]
+    live = tr.to_encoder().encode_batch(texts)
+    got = a.encode_batch(texts)
+    assert np.abs(got - live).max() <= ENC_ATOL
+    assert np.abs(got - c.encode_batch(texts)).max() <= ENC_ATOL
+
+
+def test_mining_on_card_matches_cpu(cuda):
+    from modern_search_engines_project_tpu_torch.models import (
+        mine_hard_negatives,
+    )
+
+    rng = np.random.default_rng(5)
+    words = [f"t{i}q" for i in range(40)]
+    pairs = []
+    for _ in range(500):
+        ws = list(rng.choice(words, 4, replace=False))
+        pairs.append((" ".join(ws[:2]), " ".join(rng.permutation(ws))))
+    qs, ps = [q for q, _ in pairs], [p for _, p in pairs]
+    pool = list(dict.fromkeys(ps))
+    got = mine_hard_negatives(HashingEncoder(dim=64), qs, ps, pool, k=5)
+    want = mine_hard_negatives(HashingEncoder(dim=64), qs, ps, pool, k=5,
+                               device="cpu")
+    assert got == want
+
+
+def test_cross_encoder_training_on_card_matches_cpu(cuda, tmp_path):
+    from modern_search_engines_project_tpu_torch.models import (
+        train_cross_encoder,
+    )
+
+    cfg = EncoderConfig(vocab_size=8192, dim=64, n_layers=1, n_heads=4,
+                        max_len=48, dtype="float32")
+    rng = np.random.default_rng(7)
+    tree = init_cross_encoder_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    trip = [(q, p, float(i % 2)) for i, (q, p, _) in
+            enumerate(_train_triples("cosine", 6, B=24))]
+    kw = dict(batch_size=8, learning_rate=1e-3, max_len=48, params=tree)
+    card, la = train_cross_encoder(trip, cfg, **kw)
+    cpu, lb = train_cross_encoder(trip, cfg, device="cpu", **kw)
+    np.testing.assert_allclose(la, lb, rtol=0, atol=1e-4)
+    card.save(str(tmp_path / "ce"))
+    again = CrossEncoderReranker.from_checkpoint(str(tmp_path / "ce"),
+                                                 max_len=48)
+    q, docs = trip[0][0], [t for _, t, _ in trip[:6]]
+    np.testing.assert_allclose(again.rescore(q, docs), card.rescore(q, docs),
+                               rtol=0, atol=1e-3)  # f16 checkpoint

@@ -21,11 +21,12 @@ FORBIDDEN = re.compile(
     r"\bjax\b|\bflax\b|modern_search_engines_project_tpu\.|"
     r"from\s+modern_search_engines_project_tpu\s+import"
 )
-# neither the msgpack package nor an HTTP client or server outside the
-# standard library (the checkpoint reader, the assistant's client and the
-# control plane on asyncio do without; the card's machine has no aiohttp)
+# neither the msgpack package nor optax nor an HTTP client or server
+# outside the standard library (the checkpoint reader and writer, the
+# trainers' AdamW, the assistant's client and the control plane on asyncio
+# do without; the card's machine has no aiohttp)
 FORBIDDEN_IMPORTS = re.compile(
-    r"^\s*(import|from)\s+(msgpack|httpx|aiohttp)\b")
+    r"^\s*(import|from)\s+(msgpack|optax|httpx|aiohttp)\b")
 
 
 def test_port_searches_with_jax_blocked():
@@ -246,6 +247,86 @@ def test_serving_runs_with_jax_and_aiohttp_blocked(tmp_path):
             c.close()
         finally:
             srv.stop()
+        loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
+                  or m.startswith("modern_search_engines_project_tpu.")]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_training_and_build_run_with_jax_flax_optax_msgpack_blocked(tmp_path):
+    """The offline path imports and runs on the CPU with none of jax, flax,
+    optax and msgpack importable: a tiny bi-encoder trained (cosine, then
+    mined hard negatives), saved and reloaded; the cross-encoder trained
+    and saved; a decoder saved; an index built by ``BuildPipeline`` with
+    the trained encoder and by the index CLI over a crawl store."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for m in ("jax", "flax", "optax", "msgpack"):
+            sys.modules[m] = None  # any import of these now fails
+        import numpy as np
+        from modern_search_engines_project_tpu_torch.crawler import CrawlStore
+        from modern_search_engines_project_tpu_torch.eval import (
+            encoder_quality, metrics)
+        from modern_search_engines_project_tpu_torch.index import (
+            BuildPipeline, Document, load_artifacts)
+        from modern_search_engines_project_tpu_torch.index import (
+            __main__ as index_cli)
+        from modern_search_engines_project_tpu_torch.models import (
+            DecoderConfig, EncoderConfig, TorchEncoder, TrainConfig, Trainer,
+            init_decoder_params, load_decoder, mine_hn_triples, save_decoder,
+            save_encoder, train_cross_encoder)
+        from modern_search_engines_project_tpu_torch.models import (
+            data, train_cli)  # noqa: F401
+        pairs = data.synthetic_pairs(48)
+        cfg = EncoderConfig(vocab_size=512, dim=32, n_layers=1, n_heads=2,
+                            max_len=24)
+        tr = Trainer(cfg, TrainConfig(batch_size=8, max_len=16),
+                     device="cpu")
+        losses = tr.train([(q, p, 1.0) for q, p in pairs])
+        hn = mine_hn_triples(tr.to_encoder(), pairs)
+        tr2 = Trainer(cfg, TrainConfig(loss="infonce_hn", batch_size=8,
+                                       max_len=16), device="cpu")
+        tr2.init(4, params=tr.params)
+        losses += tr2.train(hn)
+        assert np.isfinite(losses).all(), losses
+        ck = {str(tmp_path / "enc")!r}
+        save_encoder(tr2.params, cfg, ck, dtype="float16")
+        enc = TorchEncoder.from_checkpoint(ck, device="cpu")
+        docs = [Document(i, f"https://s{{i % 3}}.de/{{i}}", q, p)
+                for i, (q, p) in enumerate(pairs[:12])]
+        art = BuildPipeline(enc, {str(tmp_path / "idx")!r},
+                            shard_size=5).build(docs)
+        assert art.n_docs == 12 and art.encoder_meta["ckpt"] == ck
+        rr, ce_losses = train_cross_encoder(
+            [(q, p, 1.0) for q, p in pairs[:16]], cfg, batch_size=8,
+            max_len=24, device="cpu")
+        rr.save({str(tmp_path / "ce")!r})
+        dcfg = DecoderConfig(vocab_size=64, dim=32, n_layers=1, n_heads=2,
+                             max_len=24)
+        rng = np.random.default_rng(0)
+        save_decoder(init_decoder_params(
+            dcfg, lambda s: rng.standard_normal(s, dtype=np.float32)),
+            dcfg, {str(tmp_path / "dec")!r})
+        assert load_decoder({str(tmp_path / "dec")!r}, device="cpu")[1] == dcfg
+        store = CrawlStore({str(tmp_path / "crawl.sqlite")!r})
+        store.upsert_documents({{"url": d.url, "title": d.title,
+                                 "text": d.text}} for d in docs)
+        store.close()
+        index_cli.main(["--db", {str(tmp_path / "crawl.sqlite")!r},
+                        "--out", {str(tmp_path / "cli")!r}, "--device",
+                        "cpu", "--encoder", ck])
+        assert load_artifacts({str(tmp_path / "cli")!r}).n_docs == 12
+        assert metrics.mrr([3, 1], {{1}}) == 0.5
+        assert encoder_quality.semantic_corpus(2, 4).n_topics == 2
         loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
                   or m.startswith("modern_search_engines_project_tpu.")]
         assert not loaded, loaded
