@@ -93,6 +93,19 @@ non-zero exit):
      cross-encoder trainer and its save, save_decoder, and the training
      CLI at its defaults as a subprocess; outputs under
      build/offline_smoke/;
+  5f. the sharded backend on the 100k index: ``SearchEngine.sharded`` over
+     eight shards on the card (``Mesh([cuda:0] * 8, ("shard",))``) at B =
+     1, 16, 64 (each shard launches the batch's BM25 kernel once and kernel
+     4 once a bucket; top-10, ``bm25_search`` and ``dense_search`` against
+     the one-card engine; p50 of both in turns, one trace each, the
+     collectives a call); a (dp 2, shard 4) mesh; the int8 bank; the scatter
+     stage 1 (``use_pallas=False``) one-card and sharded at B = 16, its
+     keyed BM25 against kernel 1; ``ShardedQueryEncoder`` at full width
+     against one encode; two processes of the multihost CLI, four shards
+     each on the card over gloo, flat and hierarchical, against the
+     one-card ranking of the demo corpus; the serving CLI with
+     ``--sharded`` on phase 5d's cut; with several cards, the shards over
+     distinct cards;
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
      slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
@@ -2454,6 +2467,380 @@ def other_trainers(seed, pairs, name, smi):
         f"wall; {tail}")
 
 
+# ---- phase 5f: the sharded backend -------------------------------------------
+
+# Eight shards of the phase-3 index on one card: the counterpart of the
+# reference's eight virtual devices.
+N_SHARDS = 8
+# Scatter stage 1 against the slot kernels: the same f32 products a doc in
+# another order (index_add_ keeps none on the card) -> BM25_ATOL beside
+# WIDE_RTOL, as the wide batches.
+# The multihost demo: two processes of four shards each on one card, over
+# gloo; scores printed to 4 places, held as the reference's test holds
+# its own (2e-4).
+DEMO_ATOL = 2e-4
+
+
+def same_scored(got, want, tol, what):
+    """Two ranked lists of (doc id, score): scores to ``tol``, ids equal
+    except where a neighbouring wanted score lies within ``tol``."""
+    check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)} rows")
+    for i, ((gd, gs), (wd, ws)) in enumerate(zip(got, want)):
+        check(abs(gs - ws) <= tol, f"{what}[{i}]: score {gs} vs {ws}")
+        if gd != wd:
+            near = [abs(want[j][1] - ws) <= tol for j in (i - 1, i + 1)
+                    if 0 <= j < len(want)]
+            check(any(near), f"{what}[{i}]: doc {gd} vs {wd}")
+
+
+def bm25_rows(rows):
+    return [(r["doc_id"], r["score"]) for r in rows]
+
+
+def dense_rows(rows):
+    return [(r.doc_id, r.similarity_score) for r in rows]
+
+
+def sharded_batches(eng_n, eng, batches, want, label, n_shards, want_bm25):
+    """Each batch through the sharded engine with the counters set to 0
+    just before and read just after: the batch's BM25 kernel once a shard,
+    kernel 4 once a bucket a shard, nothing else; the top-10 held to the
+    one-card engine's ``want``.  Returns the launches keyed like
+    ``batches``."""
+    n_buckets = len(eng_n.didx.buckets)
+    launches = {}
+    for key, qs in batches.items():
+        reset_launches()
+        res = eng_n.search_batch(qs, top_k=10)
+        launches[key] = read_launches()
+        for k_name, n in launches[key].items():
+            w = (n_shards if k_name == want_bm25[key] else
+                 n_shards * n_buckets if k_name == "dense_stats" else 0)
+            check(n == w, f"{label} {key}: {k_name} launched {n} times, "
+                          f"not {w}")
+        for i, (g, w) in enumerate(zip(res, want[key])):
+            same_top(g, w, f"{label} vs one card {key} q{i}")
+    log(f"  {label}: top-10 of B = {', '.join(k[2:] for k in batches)} == "
+        f"the one-card engine; launches a batch: "
+        f"{ {k: {n: c for n, c in v.items() if c} for k, v in launches.items()} }"
+        f"; collectives a call: {eng_n._backend.last_collectives}")
+    return launches
+
+
+def timed_pair(engines, qs, reps=10):
+    """p50 ms of ``search_batch`` on each engine, taken in turns."""
+    ts = {k: [] for k in engines}
+    for _ in range(reps):
+        for k, e in engines.items():
+            t0 = time.perf_counter()
+            e.search_batch(qs, top_k=10)
+            torch.cuda.synchronize()
+            ts[k].append(time.perf_counter() - t0)
+    return {k: float(np.median(v)) * 1e3 for k, v in ts.items()}
+
+
+def multihost_run(hierarchical):
+    """Two processes of the multihost CLI, four shards each on cuda:0 over
+    gloo: (their JSON results, wall s)."""
+    port = free_port()
+    cmd = [sys.executable, "-m",
+           "modern_search_engines_project_tpu_torch.parallel.multihost",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+           "--devices-per-process", "4", "--device", "cuda"]
+    cmd += ["--hierarchical"] if hierarchical else []
+    t0 = time.time()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(p)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for p in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0,
+                  f"multihost hierarchical={hierarchical}: exit "
+                  f"{p.returncode}: {err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    return outs, time.time() - t0
+
+
+def sharded_phase(seed, eng, art, cfg, enc, slot_batches, results, name,
+                  smi):
+    """Phase 5f, the sharded backend on the phase-3 100k index:
+      (a) ``SearchEngine.sharded`` over eight shards on this card
+          (``Mesh([cuda:0] * 8, ("shard",))``, the default Config) at B =
+          1 / 16 / 64 (kernel 1, kernel 2 at U = 128, kernel 3 at U =
+          256): each shard launches the batch's kernel once and kernel 4
+          once a bucket; top-10 held to the one-card engine (ids except
+          near-ties, scores and windows to 1e-3), ``bm25_search`` and
+          ``dense_search`` too; p50 of both engines in turns, one
+          ``torch.profiler`` trace a batch (busy time, idle share, device
+          operations), the collectives a call;
+      (b) a (dp = 2, shard = 4) mesh on the same card, and the int8 bank
+          over eight shards, each held to the one-card engine with the
+          same bank;
+      (c) the scatter stage 1 (``use_pallas=False``) one-card and over
+          eight shards at B = 16: keyed BM25 against the slot kernels, the
+          same top-10;
+      (d) ``ShardedQueryEncoder`` over the eight shards against one encode
+          of the bi-encoder at full width (weights from ``seed``): unit
+          embeddings to 5e-3;
+      (e) two processes of the multihost CLI, four shards each on this
+          card over gloo, flat and ``--hierarchical``: both print the
+          one-card engine's ranking of the demo corpus; their warm merge
+          times;
+      (f) the serving CLI with ``--sharded`` on phase 5d's saved cut: a
+          one-shard mesh on one card, /api/search answered;
+      (g) with more than one card, (a) over distinct cards.
+    Returns the launch counts of (a)."""
+    from modern_search_engines_project_tpu_torch.parallel import multihost
+    from modern_search_engines_project_tpu_torch.parallel.sharding import (
+        Mesh,
+        ShardedQueryEncoder,
+    )
+
+    t_phase = time.time()
+    dev = eng.device
+    want_bm25 = {"B=1": "bm25_slots", "B=16": "bm25_slots_udedup_sublane",
+                 "B=64": "bm25_slots_udedup_i8"}
+    mesh8 = Mesh(np.array([dev] * N_SHARDS, dtype=object), ("shard",))
+
+    # (a) eight shards on one card ------------------------------------------
+    t0 = time.time()
+    eng8 = SearchEngine.sharded(art, enc, mesh8, cfg)
+    torch.cuda.synchronize()
+    s = eng8.didx
+    log(f"sharded: {N_SHARDS} shards on {dev} built in "
+        f"{time.time() - t0:.1f} s; d_loc {s.d_loc}, {len(s.buckets)} "
+        f"buckets, posting_cap {s.posting_cap}, "
+        f"{sum(sh.resident_bytes() for sh in s.shards) / 1e6:.1f} MB resident "
+        f"(one card: {eng.didx.resident_bytes() / 1e6:.1f} MB)")
+    launches = sharded_batches(eng8, eng, slot_batches, results,
+                               f"{N_SHARDS} shards", N_SHARDS, want_bm25)
+    for q in slot_batches["B=16"][:4]:
+        same_scored(bm25_rows(eng8.bm25_search(q, top_k=100)),
+                    bm25_rows(eng.bm25_search(q, top_k=100)), BM25_ATOL,
+                    f"sharded bm25_search {q!r}")
+        same_scored(dense_rows(eng8.dense_search(q, top_k=10)),
+                    dense_rows(eng.dense_search(q, top_k=10)), E2E_ATOL,
+                    f"sharded dense_search {q!r}")
+    log("  bm25_search (top 100) and dense_search (top 10) on 4 queries == "
+        "the one-card engine")
+    for key, qs in slot_batches.items():
+        eng8.times = StageTimes()
+        p50 = timed_pair({"one card": eng, f"{N_SHARDS} shards": eng8}, qs)
+        host = {k: v["mean_ms"] for k, v in eng8.times.report().items()}
+        prof = {k: profile_call(lambda e=e: e.search_batch(qs, top_k=10))
+                for k, e in (("one card", eng), (f"{N_SHARDS} shards", eng8))}
+        for k, p in prof.items():
+            if p is not None:
+                p["idle_share_of_p50"] = 1.0 - p["device_busy_ms"] / p50[k]
+                p.pop("top_device_ms")
+        log(f"  search_batch {key}: p50 (ms) {json.dumps(p50)} on {name} "
+            f"({smi}); {N_SHARDS}-shard host stage means (ms) {host}; "
+            f"torch.profiler, one call each: {json.dumps(prof)}")
+
+    # (b) the (dp, shard) mesh and the int8 bank -----------------------------
+    t0 = time.time()
+    mesh2 = Mesh(np.array([[dev] * 4] * 2, dtype=object), ("dp", "shard"))
+    eng2 = SearchEngine.sharded(art, enc, mesh2, cfg)
+    check(eng2.didx.rows[0][0] is eng2.didx.rows[1][0],
+          "dp replicas on one card do not share their shard")
+    for key in ("B=16", "B=64"):
+        reset_launches()
+        res = eng2.search_batch(slot_batches[key], top_k=10)
+        c = read_launches()
+        check_batch_launches(c, 8, len(eng2.didx.buckets), f"dp 2 x shard 4 {key}")
+        for i, (g, w) in enumerate(zip(res, results[key])):
+            same_top(g, w, f"dp 2 x shard 4 vs one card {key} q{i}")
+    log(f"  dp 2 x shard 4 on one card (built in {time.time() - t0:.1f} s, "
+        f"replicas share their shards): top-10 of B = 16, 64 == the one-card "
+        f"engine; collectives a call {eng2._backend.last_collectives}")
+    del eng2
+    t0 = time.time()
+    eng8_i8 = SearchEngine.sharded(art, enc, mesh8, cfg, bank_dtype="int8")
+    one_i8 = SearchEngine(art, enc, cfg, bank_dtype="int8")
+    for key in ("B=1", "B=16"):
+        reset_launches()
+        got = eng8_i8.search_batch(slot_batches[key], top_k=10)
+        check(read_launches()["dense_stats"] == 0,
+              "int8 bank: kernel 4 launched")
+        for i, (g, w) in enumerate(zip(
+                got, one_i8.search_batch(slot_batches[key], top_k=10))):
+            same_top(g, w, f"int8 {N_SHARDS} shards vs one card {key} q{i}")
+    log(f"  int8 bank, {N_SHARDS} shards vs one card ({time.time() - t0:.1f} "
+        "s with both builds): top-10 of B = 1, 16 equal, kernel 4 never")
+    del eng8_i8, one_i8
+
+    # (c) the scatter stage 1 ------------------------------------------------
+    t0 = time.time()
+    qs = slot_batches["B=16"]
+    tids, qtf, _ = eng.prepare_queries(qs)
+    t = torch.as_tensor(tids, device=dev)
+    q = torch.as_tensor(qtf, device=dev)
+    errs = {}
+    for i, sh in enumerate(s.shards):
+        got = ops.bm25_score_batch(sh.indptr, sh.post_docs, sh.post_impact,
+                                   t, q, n_docs_pad=s.d_loc,
+                                   posting_cap=s.posting_cap)[:, : s.d_loc]
+        want = bm25_score_slots(sh, t, q)[:, : s.d_loc]
+        excess = ((got - want).abs() - WIDE_RTOL * want.abs()).max().item()
+        check(excess <= BM25_ATOL and torch.equal(got < 0, want < 0),
+              f"shard {i}: scatter vs kernel 1 keyed scores")
+        errs[f"shard {i}"] = (got - want).abs().max().item()
+    one_sc = SearchEngine(art, enc, cfg, use_pallas=False)
+    d = one_sc.didx
+    got = ops.bm25_score_batch(d.indptr, d.post_docs, d.post_impact, t, q,
+                               n_docs_pad=d.n_docs_pad,
+                               posting_cap=d.posting_cap)[:, : art.n_docs]
+    want = to_artifact_order(bm25_score_slots(eng.didx, t, q),
+                             eng.didx.doc_perm, art.n_docs)
+    excess = ((got - want).abs() - WIDE_RTOL * want.abs()).max().item()
+    check(excess <= BM25_ATOL and torch.equal(got < 0, want < 0),
+          "one card: scatter vs kernel 1 keyed scores")
+    errs["one card"] = (got - want).abs().max().item()
+    eng8_sc = SearchEngine.sharded(art, enc, mesh8, cfg, use_pallas=False)
+    for label, e in (("one card", one_sc), (f"{N_SHARDS} shards", eng8_sc)):
+        reset_launches()
+        res = e.search_batch(qs, top_k=10)
+        c = read_launches()
+        n_stats = 0 if e is one_sc else N_SHARDS * len(s.buckets)
+        check(c == {k: n_stats if k == "dense_stats" else 0 for k in c},
+              f"scatter {label}: launches {c}")
+        for i, (g, w) in enumerate(zip(res, results["B=16"])):
+            same_top(g, w, f"scatter {label} vs slots B=16 q{i}")
+    p50 = timed_pair({"one card scatter": one_sc,
+                      f"{N_SHARDS} shards scatter": eng8_sc, "one card": eng},
+                     qs, reps=5)
+    log(f"  scatter stage 1 at B = 16 ({time.time() - t0:.1f} s): keyed BM25 "
+        f"vs kernel 1 max abs err {json.dumps(errs)}; top-10 == the slot path "
+        f"one-card and over {N_SHARDS} shards; p50 (ms) {json.dumps(p50)}")
+    del one_sc, eng8_sc
+
+    # (d) the query encoder over the mesh ------------------------------------
+    t0 = time.time()
+    rng = np.random.default_rng(seed + 7)
+    tree = init_reference_params(
+        EncoderConfig(), lambda sh: rng.standard_normal(sh, dtype=np.float32))
+    tenc = TorchEncoder(EncoderConfig(), params=tree)
+    del tree
+    senc = ShardedQueryEncoder(tenc, mesh8)
+    check(list(senc.replicas) == [dev], "the encoder was copied on one card")
+    errs = {}
+    for key in ("B=1", "B=16", "B=64"):
+        texts = [preprocess_query(x) for x in slot_batches[key]]
+        got = senc(texts).cpu().numpy()
+        want = tenc.encode_batch(texts)
+        want = want / np.maximum(np.linalg.norm(want, axis=1, keepdims=True),
+                                 1e-12)
+        e = float(np.abs(got - want).max())
+        cos = float((got * want).sum(1).min())
+        check(e <= ENC_ATOL and cos >= ENC_COS,
+              f"sharded encoder {key}: max |d| {e}, min cos {cos}")
+        errs[key] = {"max_abs_err": e, "min_cos": cos}
+    texts = [preprocess_query(x) for x in slot_batches["B=64"]]
+    ms = {"one encode": cuda_ms(lambda: tenc.encode_batch_device(texts), 5),
+          f"{N_SHARDS} parts": cuda_ms(lambda: senc(texts), 5)}
+    log(f"  ShardedQueryEncoder (12L/768d, weights from --seed) over "
+        f"{N_SHARDS} shards vs one encode: {json.dumps(errs)}; B = 64 wall "
+        f"ms {json.dumps(ms)} on {name} ({time.time() - t0:.1f} s)")
+    del senc, tenc
+
+    # (e) two processes over gloo ---------------------------------------------
+    dcfg = Config(**multihost.DEMO_CONFIG)
+    denc = HashingEncoder(dim=dcfg.embedding_dim)
+    demo = SearchEngine(IndexBuilder(denc, dcfg).build(
+        multihost.demo_corpus(64)), denc, dcfg)
+    want = [[(d.doc_id, round(d.similarity_score, 4)) for d in r]
+            for r in demo.search_batch(multihost.QUERIES, top_k=5)]
+    for hier in (False, True):
+        outs, wall = multihost_run(hier)
+        check(outs[0]["results"] == outs[1]["results"],
+              f"multihost hierarchical={hier}: processes differ")
+        check(outs[0]["backend"] == "gloo" and outs[0]["device"] == str(dev),
+              f"multihost: {outs[0]['backend']} on {outs[0]['device']}")
+        for i, (g, w) in enumerate(zip(outs[0]["results"], want)):
+            check(len(g) > 0, "multihost: empty ranking")
+            same_scored([tuple(x) for x in g], w, DEMO_ATOL,
+                        f"multihost hierarchical={hier} q{i}")
+        log(f"  multihost, 2 processes x 4 shards on {dev} over gloo, "
+            f"hierarchical={hier}: both print the one-card ranking ({wall:.1f} "
+            f"s wall); warm search_batch ms "
+            f"{[o['rank_ms_per_batch'] for o in outs]}, of it host ms in the "
+            f"cross-process collectives "
+            f"{[o['collective_ms_per_batch'] for o in outs]} on {name} ({smi})")
+
+    # (f) the serving CLI, --sharded ------------------------------------------
+    idx_dir = os.path.join(ROOT, "build", "serve_index")
+    check(os.path.isdir(idx_dir), "phase 5d's saved cut is missing")
+    port = free_port()
+    with open(os.path.join(ROOT, "build", "serve_sharded.log"), "wb") as logf:
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "modern_search_engines_project_tpu_torch."
+             "serving", "--index", idx_dir, "--host", "127.0.0.1", "--port",
+             str(port), "--sharded"],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT)
+        try:
+            deadline = time.time() + 300
+            while True:
+                check(proc.poll() is None and time.time() < deadline,
+                      f"CLI --sharded: not healthy (rc {proc.poll()}), see "
+                      "build/serve_sharded.log")
+                try:
+                    if http_json(port, "GET", "/api/health", timeout=5)[0] \
+                            == 200:
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            boot_s = time.time() - t0
+            n_docs = 0
+            for qq in slot_batches["B=16"][:4]:
+                st, body = http_json(port, "POST", "/api/search",
+                                     {"query": qq, "top_k": 10})
+                check(st == 200, f"CLI --sharded {qq!r}: {st}")
+                n_docs += len(body["documents"])
+            check(n_docs > 0, "CLI --sharded: every result empty")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            check(rc in (0, -signal.SIGTERM), f"CLI --sharded: exit code {rc}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    with open(os.path.join(ROOT, "build", "serve_sharded.log")) as f:
+        mesh_line = [ln.strip() for ln in f if "sharded engine" in ln]
+    check(mesh_line and "(1,)" in mesh_line[0],
+          f"CLI --sharded: the log names no one-shard mesh: {mesh_line}")
+    log(f"  CLI --sharded on the {SERVE_CUT_DOCS}-doc cut: healthy "
+        f"{boot_s:.1f} s after start (warmup included), 4 queries answered "
+        f"({n_docs} rows), exit {rc}; its log: {mesh_line[0]!r}")
+
+    # (g) several cards --------------------------------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        n = min(N_SHARDS, n_cards)
+        cards = Mesh(np.array([torch.device("cuda", i) for i in range(n)],
+                              dtype=object), ("shard",))
+        eng_c = SearchEngine.sharded(art, enc, cards, cfg)
+        sharded_batches(eng_c, eng, slot_batches, results,
+                        f"{n} shards on {n} cards", n, want_bm25)
+        p50 = timed_pair({"one card": eng, f"{n} cards": eng_c},
+                         slot_batches["B=64"])
+        log(f"  {n} cards, B = 64: p50 (ms) {json.dumps(p50)}")
+        del eng_c
+    else:
+        log("  one card visible: the cross-card copies of the merge went "
+            "unmeasured")
+    log(f"  sharded phase: {time.time() - t_phase:.1f} s")
+    return launches
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2591,6 +2978,11 @@ def main(argv=None) -> int:
     # --- phase 5e: training, checkpoints and the sharded build --------------
     launches["training"] = training_phase(args.seed, words, dfs, cfg, name,
                                           smi)
+
+    # --- phase 5f: the sharded backend ---------------------------------------
+    launches["sharded"] = sharded_phase(args.seed, eng, art, cfg, enc,
+                                        slot_batches, results["slots"], name,
+                                        smi)
 
     # --- phase 6: small phases ----------------------------------------------
     check_empty_index(cfg, enc)

@@ -23,8 +23,8 @@ files are the reference's (the same pickled payload of numpy arrays,
 lists and dicts, written to ``.tmp`` and renamed), so either package
 resumes a build the other began.  Embedding runs wherever the encoder
 does: a ``TorchEncoder`` on its device, the ``HashingEncoder`` on the
-host.  ``mesh`` (data-parallel embedding over several devices) is not
-ported (ROADMAP section 1, item 7).
+host; with ``mesh`` a ``TorchEncoder``'s batches are split over the
+mesh's devices (``DataParallelEncoder``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import pickle
 from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from modern_search_engines_project_tpu_torch.config import Config, DEFAULT_CONFIG
 from modern_search_engines_project_tpu_torch.index.builder import (
@@ -52,24 +53,38 @@ from modern_search_engines_project_tpu_torch.text.hash_tokenizer import HashToke
 
 
 class DataParallelEncoder:
-    """Wraps an ``encode_batch`` model for the pipeline, on one device.
+    """Wraps an ``encode_batch`` model for the pipeline.
 
-    The reference shards each batch data-parallel over a 1-D device mesh;
-    the port's multi-GPU backend is not written yet, so ``mesh`` raises
-    (ROADMAP section 1, item 7) and batches go to the encoder as they
-    are (a ``TorchEncoder`` runs them on its own device)."""
+    With a ``mesh`` (``parallel.sharding.Mesh``) and a ``TorchEncoder``,
+    each batch is split over the mesh's devices as
+    ``parallel.sharding.ShardedQueryEncoder`` splits a query batch (one
+    replica a distinct device), and the raw embeddings come back in the
+    original order; otherwise batches go to the encoder as they are (a
+    ``TorchEncoder`` runs them on its own device, a host encoder on the
+    host)."""
 
     def __init__(self, encoder, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DataParallelEncoder(mesh=...): data-parallel embedding over "
-                "several GPUs is not ported yet (ROADMAP section 1, item 7)"
-            )
+        from modern_search_engines_project_tpu_torch.models.encoder import (
+            TorchEncoder,
+        )
+        from modern_search_engines_project_tpu_torch.parallel.sharding import (
+            Mesh,
+            ShardedQueryEncoder,
+        )
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a parallel.sharding.Mesh, not {mesh!r}")
         self.encoder = encoder
         self.dim = getattr(encoder, "dim", None)
+        self._split = None
+        if mesh is not None and isinstance(encoder, TorchEncoder):
+            self._split = ShardedQueryEncoder(encoder, mesh)
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
-        return self.encoder.encode_batch(texts)
+        if self._split is None:
+            return self.encoder.encode_batch(texts)
+        parts = self._split.encode_parts(texts)
+        return torch.cat([p.cpu() for p in parts]).numpy()[: len(texts)]
 
 
 class BuildPipeline:

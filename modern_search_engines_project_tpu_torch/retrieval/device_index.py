@@ -4,7 +4,10 @@ Counterpart of the reference package's ``retrieval/device_index.py``: the
 BM25 postings in ONE of two layouts (doc-slot, the default, or doc-major
 blocked), the slot-major bucketed chunk bank, both in the bucketed
 (permuted) doc order, and for an index with no chunk buckets (an empty
-corpus) the packed arrays the no-bucket tail reads.  The numpy builders
+corpus) the packed arrays the no-bucket tail reads.  The scatter path
+(``packed_device=True``) adds the CSR postings and the packed bank in
+artifact doc order; a shard of ``parallel.sharding`` is a ``DeviceIndex``
+with both the slot layout and its own CSR.  The numpy builders
 are copies of the reference's, so both packages build bit-identical
 layouts from the same ``IndexArtifacts``.
 
@@ -259,10 +262,30 @@ def build_blocked_postings(
     return blk_terms, blk_impact, blk_local
 
 
+def posting_cap_for(indptr: np.ndarray, max_query_terms: int) -> int:
+    """The CSR scatter path's gather budget a query (the reference's
+    rule): the postings of the ``max_query_terms`` commonest terms plus
+    one, rounded up to a multiple of 1024, at least 1024."""
+    top = np.sort(np.diff(np.asarray(indptr)))[::-1][:max_query_terms]
+    return max(1024, _round_up(int(top.sum()) + 1, 1024))
+
+
+def csr_fields(indptr, post_docs, post_impact, posting_cap: int) -> dict:
+    """The CSR scatter path's fields; an empty index keeps one posting
+    (doc 0, impact 0), which the scatter's validity mask never reads."""
+    pd = np.asarray(post_docs, np.int32)
+    pi = np.asarray(post_impact, np.float32)
+    if pd.shape[0] == 0:
+        pd, pi = np.zeros(1, np.int32), np.zeros(1, np.float32)
+    return {"indptr": np.asarray(indptr, np.int32), "post_docs": pd,
+            "post_impact": pi, "posting_cap": int(posting_cap)}
+
+
 def build_index_fields(
     art: IndexArtifacts,
     config: Optional[Config] = None,
     bm25_layout: str = "slots",
+    packed_device: bool = False,
 ):
     """Host (numpy) construction of every array the query path reads.
 
@@ -272,8 +295,11 @@ def build_index_fields(
     chunk-count bucket that suits it.  An index without chunk embeddings
     has no buckets: it is always blocked, keeps the artifact doc order
     (``doc_perm`` None) and carries the packed chunk arrays of the
-    no-bucket tail.  Returns the dict ``device_index_from_numpy`` takes
-    (banks in f32); the fields of the layout not built are None."""
+    no-bucket tail.  ``packed_device=True`` (the scatter path serves, as
+    the reference's ``packed_device``) adds the CSR postings and the
+    packed chunk arrays, both in artifact doc order.  Returns the dict
+    ``device_index_from_numpy`` takes (banks in f32); the fields of the
+    layout not built are None."""
     cfg = config or art.config
     n_docs = art.n_docs
     n_docs_pad = max(_round_up(n_docs, 128), 128)
@@ -374,8 +400,15 @@ def build_index_fields(
             blk_terms=blk_terms, blk_impact=blk_impact, blk_local=blk_local
         )
 
+    # --- the scatter path: CSR postings (ARTIFACT doc order) --------------
+    if packed_device:
+        fields.update(csr_fields(
+            art.indptr, art.post_docs, art.post_impact,
+            posting_cap_for(art.indptr, cfg.max_query_terms),
+        ))
+
     # --- packed chunk arrays (ARTIFACT doc order) for the no-bucket tail --
-    if not buckets:
+    if packed_device or not buckets:
         chunk_emb = np.zeros((n_chunks_pad, art.chunk_emb.shape[1]), np.float32)
         chunk_emb[:n_chunks] = art.chunk_emb
         chunk_doc = np.full(n_chunks_pad, n_docs_pad, np.int32)
@@ -536,6 +569,11 @@ class DeviceIndex:
     col_unperm: Optional[torch.Tensor]  # int32 [n_docs_pad]
     # BM25, doc-major blocked layout; None when the slot layout is resident
     blocked: Optional[BlockedPostings]
+    # BM25, term-major CSR for the scatter path; None unless it serves
+    indptr: Optional[torch.Tensor]  # int32 [V + 1]
+    post_docs: Optional[torch.Tensor]  # int32 [nnz]
+    post_impact: Optional[torch.Tensor]  # float32 [nnz]
+    posting_cap: int  # the scatter's gather budget a query (0: no CSR)
     # dense, packed (artifact doc order); only for an index with no buckets
     chunk_emb: Optional[torch.Tensor]  # bank dtype [n_chunks_pad, dim]
     chunk_doc: Optional[torch.Tensor]  # int32 [n_chunks_pad] (pad: n_docs_pad)
@@ -569,21 +607,27 @@ class DeviceIndex:
         bank_dtype: Optional[torch.dtype] = None,
         device=None,
         bm25_layout: str = "slots",
+        packed_device: bool = False,
     ) -> "DeviceIndex":
         """Build the index on ``device`` (the card by default) with the
-        ``bm25_layout`` postings resident.  The banks are bf16 on the card
-        and f32 on the CPU unless ``bank_dtype`` says otherwise; "int8"
-        (or ``torch.int8``) quantizes each bucket bank per row
-        (``quantize_bank_int8``), while a packed bank stays f32."""
+        ``bm25_layout`` postings resident, and with ``packed_device`` also
+        the scatter path's CSR postings and packed bank.  The banks are
+        bf16 on the card and f32 on the CPU unless ``bank_dtype`` says
+        otherwise; "int8" (or ``torch.int8``) quantizes each bucket bank
+        per row (``quantize_bank_int8``), while a packed bank stays f32."""
         dev = resolve_device(device)
         return device_index_from_numpy(
-            build_index_fields(art, config, bm25_layout), dev, bank_dtype
+            build_index_fields(art, config, bm25_layout, packed_device), dev,
+            bank_dtype,
         )
 
     def resident_bytes(self) -> int:
         """Bytes of every tensor this index holds on its device."""
         ts = [
             self.col_unperm,
+            self.indptr,
+            self.post_docs,
+            self.post_impact,
             self.chunk_emb,
             self.chunk_doc,
             self.doc_chunk_start,
@@ -614,7 +658,9 @@ def device_index_from_numpy(
     ``col_unperm``) or the blocked one (``blk_terms``, ``blk_impact``,
     ``blk_local``), the buckets, and for an index without buckets the
     packed ``chunk_emb``, ``chunk_doc``, ``doc_chunk_start`` and
-    ``doc_n_chunks``; so both packages can serve bit-identical layouts.
+    ``doc_n_chunks``, and for the scatter path ``indptr``, ``post_docs``,
+    ``post_impact`` and ``posting_cap``; so both packages can serve
+    bit-identical layouts.
     """
     dev = resolve_device(device)
     if bank_dtype is None:
@@ -662,6 +708,10 @@ def device_index_from_numpy(
         slot_stream=stream,
         col_unperm=put(fields.get("col_unperm"), torch.int32),
         blocked=blocked,
+        indptr=put(fields.get("indptr"), torch.int32),
+        post_docs=put(fields.get("post_docs"), torch.int32),
+        post_impact=put(fields.get("post_impact"), torch.float32),
+        posting_cap=int(fields.get("posting_cap") or 0),
         chunk_emb=(
             None if chunk_emb is None
             else put(np.asarray(chunk_emb, np.float32), packed_dtype)

@@ -9,7 +9,10 @@ buckets, the packed-bank tail), and host-side dedup, domain
 diversification and result formatting over the (at most)
 ``top_k_retrieval`` candidates, and the optional stage 3 (a
 cross-encoder rescoring each query's final rows).  ``bm25_search`` and
-``dense_search`` run one stage alone.
+``dense_search`` run one stage alone.  ``use_pallas=False`` takes the
+reference's scatter path (CSR BM25 and the packed bank, no kernel);
+``SearchEngine.sharded`` ranks over an index sharded on a mesh
+(``parallel/sharding.py``).
 
 Runs on the card unless the caller passes ``device="cpu"``, where every
 kernel wrapper takes its plain PyTorch version.
@@ -70,6 +73,7 @@ class SearchEngine:
         analyzer: Optional[Analyzer] = None,
         device=None,
         cross_encoder=None,
+        use_pallas: Optional[bool] = None,
     ):
         """``device``: "cuda" (default) or "cpu"; with no card and no
         ``device="cpu"`` this raises.  ``bank_dtype`` defaults to bf16 on
@@ -77,27 +81,90 @@ class SearchEngine:
         per-row int8 bucket banks, which stay off kernel 4 (an s32 library
         product and the streaming top-2).  ``cross_encoder``: the optional stage
         3, anything with ``rescore(query, texts) -> float32 [n]``
-        (``models.cross_encoder.CrossEncoderReranker``)."""
+        (``models.cross_encoder.CrossEncoderReranker``).  ``use_pallas``:
+        None or True ranks through the kernels (their plain versions on
+        the CPU); False takes the reference's scatter path (CSR BM25 and
+        the packed bank, ``ops.hybrid_rank``, in artifact doc order),
+        which launches no kernel."""
         self.art = artifacts
         self.cfg = config or artifacts.config
         self.encoder = encoder
         self.analyzer = analyzer or Analyzer()
+        self.use_pallas = use_pallas is not False
         self.didx = DeviceIndex.from_artifacts(
             artifacts, self.cfg, bank_dtype=bank_dtype, device=device,
             bm25_layout=self.cfg.bm25_layout,
+            packed_device=not self.use_pallas,
         )
         self.device = self.didx.device
         self.k_ret = min(self.cfg.top_k_retrieval, self.didx.n_docs_pad)
         self._approx = resolve_approx(self.cfg, self.didx.n_docs_pad)
         self.times = StageTimes()
         self.cross_encoder = cross_encoder
-        # results come back in the bucketed (permuted) doc order; an index
-        # without buckets keeps the artifact order (doc_perm None)
-        self._result_perm = self.didx.doc_perm
+        # the kernel paths rank in the bucketed (permuted) doc order; an
+        # index without buckets and the scatter path keep the artifact
+        # order (no permutation)
+        self._result_perm = self.didx.doc_perm if self.use_pallas else None
+        self._init_finish_codes()
+
+    def _init_finish_codes(self) -> None:
+        """Per-doc integer codes of the host finishing pass (dedup by
+        query-stripped url, domain diversification)."""
         self._domain_codes = factorize(self.art.domains)
         self._base_codes = factorize(
             [u.split("?", 1)[0] for u in self.art.urls]
         )
+
+    @classmethod
+    def sharded(
+        cls,
+        artifacts: IndexArtifacts,
+        encoder,
+        mesh,
+        config: Optional[Config] = None,
+        bank_dtype=None,
+        analyzer: Optional[Analyzer] = None,
+        use_pallas: Optional[bool] = None,
+    ) -> "SearchEngine":
+        """The engine over an index sharded on ``mesh`` (a
+        ``parallel.sharding.Mesh``): per-shard ranking, one fused candidate
+        merge, the pool extrema and the per-candidate combine across
+        shards (``parallel.sharding.ShardedEngineBackend``).  Same API as
+        the one-device engine; ``bank_dtype`` defaults to bf16 on the card
+        and f32 on the CPU ("int8" allowed); ``use_pallas=False`` takes the
+        scatter stage 1.  A ``TorchEncoder`` encodes queries split over
+        the mesh (``ShardedQueryEncoder``)."""
+        from modern_search_engines_project_tpu_torch.models.encoder import (
+            TorchEncoder,
+        )
+        from modern_search_engines_project_tpu_torch.parallel.sharding import (
+            ShardedEngineBackend,
+            ShardedQueryEncoder,
+        )
+
+        self = cls.__new__(cls)
+        self.art = artifacts
+        self.cfg = config or artifacts.config
+        self.encoder = encoder
+        self.analyzer = analyzer or Analyzer()
+        backend = ShardedEngineBackend(
+            artifacts, mesh, self.cfg, bank_dtype=bank_dtype,
+            use_pallas=use_pallas,
+        )
+        self.didx = backend.sidx
+        self.device = backend.device
+        self.k_ret = backend.k_ret
+        self.use_pallas = backend.use_pallas
+        self.times = StageTimes()
+        self.cross_encoder = None
+        # shard docs are bucket-permuted; results map back on the host
+        self._result_perm = backend.doc_perm
+        self._backend = backend
+        self._device_rank = backend.rank
+        if isinstance(encoder, TorchEncoder):
+            self._sharded_enc = ShardedQueryEncoder(encoder, mesh)
+        self._init_finish_codes()
+        return self
 
     # --- host-side query prep ----------------------------------------------
 
@@ -140,7 +207,11 @@ class SearchEngine:
         tensor on its device, normalised there with no host sync: the
         ranking dispatch queues behind the encode on the same stream, so
         the batch pays one host round trip, when the results come back.
-        Host encoders give numpy, normalised on the host."""
+        Host encoders give numpy, normalised on the host.  A sharded
+        engine with a ``TorchEncoder`` splits the batch over its mesh."""
+        senc = getattr(self, "_sharded_enc", None)
+        if senc is not None:
+            return senc(list(processed))
         enc_dev = getattr(self.encoder, "encode_batch_device", None)
         if enc_dev is not None:
             q = enc_dev(list(processed)).float()
@@ -170,6 +241,13 @@ class SearchEngine:
         def dense_args():
             return up(tids_np, np.int32), up(qtf, np.float32)
 
+        if not self.use_pallas:  # the reference's scatter path
+            return ops.hybrid_rank(
+                d.indptr, d.post_docs, d.post_impact, d.chunk_emb,
+                d.chunk_doc, d.doc_chunk_start, d.doc_n_chunks,
+                *dense_args(), q, n_docs_pad=d.n_docs_pad,
+                posting_cap=d.posting_cap, **kw,
+            )
         if not d.buckets:  # no chunk buckets: blocked + packed-bank tail
             return ops.hybrid_rank_blocked(d, *dense_args(), q, **kw)
         kw["approx"] = self._approx
@@ -403,7 +481,10 @@ class SearchEngine:
             self.encode_queries([pq]), dtype=torch.float32, device=self.device
         )
         k = min(top_k, d.n_docs_pad)
-        if d.buckets:
+        backend = getattr(self, "_backend", None)
+        if backend is not None:
+            idx, vals, win = backend.dense_topk(q, k)
+        elif d.buckets and self.use_pallas:
             idx, vals, win = ops.dense_rank_buckets(d, q, k=k)
         else:
             idx, vals, win = ops.dense_rank(
@@ -433,17 +514,25 @@ class SearchEngine:
 
     def bm25_search(self, query: str, top_k: int = 1000, augment: bool = False):
         """Stage-1-only search through the resident layout's plain BM25
-        kernel (1 or 7).  Returns [{doc_id, score, text_snippet}]."""
+        kernel (1 or 7), or the CSR scatter (``use_pallas=False`` and every
+        sharded engine).  Returns [{doc_id, score, text_snippet}]."""
         term_ids, qtf, _ = self.prepare_queries([query], augment=augment)
         d = self.didx
-        topk = (ops.bm25_topk_slots if d.bm25_layout == "slots"
-                else ops.bm25_topk_blocked)
-        idx, vals = topk(
-            d,
-            torch.as_tensor(term_ids, dtype=torch.int32, device=self.device),
-            torch.as_tensor(qtf, dtype=torch.float32, device=self.device),
-            min(top_k, d.n_docs_pad),
-        )
+        k = min(top_k, d.n_docs_pad)
+        backend = getattr(self, "_backend", None)
+        if backend is not None:
+            idx, vals = backend.bm25_topk(term_ids, qtf, k)
+        else:
+            topk = (ops.bm25_topk if not self.use_pallas
+                    else ops.bm25_topk_slots if d.bm25_layout == "slots"
+                    else ops.bm25_topk_blocked)
+            idx, vals = topk(
+                d,
+                torch.as_tensor(term_ids, dtype=torch.int32,
+                                device=self.device),
+                torch.as_tensor(qtf, dtype=torch.float32, device=self.device),
+                k,
+            )
         idx, vals = self._to_host((idx, vals))
         idx = self._to_artifact_order(idx, vals >= 0)
         results = []

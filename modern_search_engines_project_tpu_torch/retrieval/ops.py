@@ -12,6 +12,12 @@ stable final re-sort).  An int8 bucket bank (``bank_dtype="int8"``, a
 (q8, inv_scale) pair a bucket) stays off kernel 4, as in the reference:
 its sims are an s8 x s8 -> s32 product (``int8_bucket_sims``) followed by
 the streaming top-2.
+
+The reference's scatter path is here too, in plain torch (it is XLA
+gather/scatter there, no TPU kernel): ``bm25_score_batch`` over the CSR
+postings, ``exact_topk``, ``hybrid_rank`` (CSR BM25 + the packed-bank
+tail, the engine's ``use_pallas=False`` path) and ``bm25_topk``; the
+sharded backend's ``bm25_topk`` and its scatter stage 1 run on it.
 """
 
 from __future__ import annotations
@@ -86,6 +92,87 @@ def topk_blockmax(scores: torch.Tensor, k: int, block=None):
     didx = (bidx[:, :, None] * block + lane).reshape(B, nblk * block)
     vals, idx = _two_key_sort(dvals, didx)
     return vals[:, :k], idx[:, :k].to(torch.int32)
+
+
+EXACT_TOPK_MIN_COLS = 131_072  # exact_topk splits only wider doc axes
+EXACT_TOPK_BLOCK = 8_000  # columns a first-stage block of exact_topk
+
+
+def exact_topk(scores: torch.Tensor, k: int):
+    """Two-stage blocked exact top-k (the reference's): rows wider than
+    ``EXACT_TOPK_MIN_COLS`` are cut into blocks of ``EXACT_TOPK_BLOCK``
+    columns, each block's top-k taken, then the top-k of those.  Both
+    stages have ``lax.top_k``'s tie order, so the result equals
+    ``_sorted_topk`` of the whole row."""
+    B, N = scores.shape
+    L = EXACT_TOPK_BLOCK
+    if N <= EXACT_TOPK_MIN_COLS or k > L:
+        return _sorted_topk(scores, k)
+    pad = (-N) % L
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+    nb = (N + pad) // L
+    bv, bi = torch.sort(scores.reshape(B, nb, L), dim=2, descending=True,
+                        stable=True)
+    bv, bi = bv[:, :, :k], bi[:, :, :k]
+    gi = bi + (torch.arange(nb, device=scores.device) * L)[None, :, None]
+    v, sel = _sorted_topk(bv.reshape(B, -1), k)
+    return v, gi.reshape(B, -1).gather(1, sel.long()).to(torch.int32)
+
+
+def bm25_score_batch(
+    indptr, post_docs, post_impact, term_ids, qtf, *, n_docs_pad: int,
+    posting_cap: int,
+) -> torch.Tensor:
+    """Keyed BM25 scores [B, n_docs_pad + 1] over term-major CSR postings
+    (the reference's scatter front end; the last column is the scatter
+    sentinel).
+
+    Each query's terms are taken rarest first and their postings laid out
+    in one budget of ``posting_cap`` lanes (a query over budget loses the
+    postings of its commonest terms); a lane finds its term by comparing
+    against all T cumulative lengths.  One scatter-add accumulates (score,
+    match count) a doc, so a doc matched with score exactly 0 (idf 0)
+    stays admissible: a matched doc with score >= 0 keeps it, every other
+    doc gets -1.  The scatter adds in no fixed order on the card."""
+    B, T = term_ids.shape
+    dev = term_ids.device
+    nnz = post_docs.shape[0]
+    n_terms = indptr.shape[0] - 1
+    valid_term = term_ids >= 0
+    tid = term_ids.clamp(0, max(n_terms - 1, 0)).long()
+    starts = indptr[tid]
+    # (an empty vocabulary has indptr [0]: clamp as the reference's gather)
+    ends = indptr[(tid + 1).clamp(max=n_terms)]
+    lens = torch.where(valid_term, ends - starts, 0)
+
+    order = torch.argsort(lens, dim=1, stable=True)  # rarest first
+    lens_s = lens.gather(1, order)
+    starts_s = starts.gather(1, order)
+    qtf_s = qtf.gather(1, order)
+
+    cum = torch.cumsum(lens_s, dim=1)
+    total = cum[:, -1:]
+    j = torch.arange(posting_cap, dtype=cum.dtype, device=dev)[None, :]
+    slot = torch.zeros(B, posting_cap, dtype=torch.int64, device=dev)
+    for t in range(T):
+        slot += j >= cum[:, t : t + 1]
+    slot = slot.clamp(0, T - 1)
+    cum0 = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    within = j - cum0.gather(1, slot)
+    src = (starts_s.gather(1, slot) + within).clamp(0, max(nnz - 1, 0)).long()
+
+    valid = j < total
+    d = torch.where(valid, post_docs[src], n_docs_pad)
+    contrib = torch.where(valid, post_impact[src] * qtf_s.gather(1, slot), 0.0)
+    updates = torch.stack([contrib, valid.to(torch.float32)], dim=-1)
+    rows = torch.arange(B, device=dev)[:, None] * (n_docs_pad + 1)
+    acc = torch.zeros(B * (n_docs_pad + 1), 2, dtype=torch.float32,
+                      device=dev)
+    acc.index_add_(0, (d.long() + rows).reshape(-1), updates.reshape(-1, 2))
+    acc = acc.reshape(B, n_docs_pad + 1, 2)
+    scores, matched = acc[..., 0], acc[..., 1] > 0
+    return torch.where(matched & (scores >= 0.0), scores, -1.0)
 
 
 def _rank_candidates(doc_score, win, top_idx, valid_c, old_norm, k_ret: int):
@@ -386,6 +473,34 @@ def _hybrid_tail(
     doc_score = torch.maximum(m1_adj, m2)
     win = torch.where(m1_adj >= m2, w1, w2)
     return _rank_candidates(doc_score, win, top_idx, valid_c, old_norm, k_ret)
+
+
+def hybrid_rank(
+    indptr, post_docs, post_impact, chunk_emb, chunk_doc, doc_chunk_start,
+    doc_n_chunks, term_ids, qtf, qvec, *, n_docs_pad: int, posting_cap: int,
+    k_ret: int, smoothing: float = 0.15,
+):
+    """The reference's scatter path: CSR BM25 (``bm25_score_batch``) + the
+    packed-bank tail, both in artifact doc order.  Returns (doc, fused,
+    bm25_norm, win, valid), each [B, k_ret]."""
+    bm = bm25_score_batch(
+        indptr, post_docs, post_impact, term_ids, qtf,
+        n_docs_pad=n_docs_pad, posting_cap=posting_cap,
+    )
+    return _hybrid_tail(
+        bm, chunk_emb, chunk_doc, doc_chunk_start, doc_n_chunks, qvec,
+        n_docs_pad=n_docs_pad, k_ret=k_ret, smoothing=smoothing,
+    )
+
+
+def bm25_topk(didx, term_ids, qtf, k: int):
+    """BM25-only retrieval over the CSR postings: (idx [B,k], vals [B,k])."""
+    bm = bm25_score_batch(
+        didx.indptr, didx.post_docs, didx.post_impact, term_ids, qtf,
+        n_docs_pad=didx.n_docs_pad, posting_cap=didx.posting_cap,
+    )
+    vals, idx = topk_blockmax(bm[:, : didx.n_docs_pad], k)
+    return idx, vals
 
 
 def hybrid_rank_blocked(

@@ -8,19 +8,16 @@ demo index from bundled sample documents when --index is omitted, so the
 UI can be driven end to end without a crawl.  The engine runs on the card
 (``--device cuda``, the default; it raises without one) unless
 ``--device cpu`` asks for the plain PyTorch versions on the CPU.
-``--sharded`` and ``--mesh`` are not ported yet: they exit non-zero
-rather than serve one card.
+``--sharded`` shards the index over every visible card (one CPU shard
+with ``--device cpu``); ``--mesh DP,SHARD`` over a (dp, shard) mesh of
+DP x SHARD cards (CPU shards with ``--device cpu``), exiting non-zero when
+fewer cards are visible.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-
-_NOT_PORTED = (
-    "{flag}: the sharded backend is not ported to the torch engine yet "
-    "(ROADMAP.md section 1, item 7); this server would run on one card"
-)
 
 
 def _demo_artifacts(cfg):
@@ -149,13 +146,6 @@ def resolve_encoder(art, ckpt=None, force=False, device=None):
     )
 
 
-def refuse_unported(args) -> None:
-    """``--sharded`` / ``--mesh`` exit non-zero: never one card quietly."""
-    for flag, on in (("--sharded", args.sharded), ("--mesh", args.mesh)):
-        if on:
-            raise SystemExit(_NOT_PORTED.format(flag=flag))
-
-
 def build_engine_from_args(args):
     """Engine factory shared by the in-line server and the worker
     processes (module level: worker processes import it after spawn)."""
@@ -175,6 +165,21 @@ def build_engine_from_args(args):
         cfg = DEFAULT_CONFIG
         art, enc = _demo_artifacts(cfg)
     bank = "int8" if args.int8_bank else None
+    if args.mesh or args.sharded:
+        from modern_search_engines_project_tpu_torch.parallel.sharding import (
+            make_mesh,
+            make_mesh_2d,
+        )
+
+        if args.mesh:
+            dp, shard = (int(x) for x in args.mesh.split(","))
+            mesh = make_mesh_2d(dp, shard, device=args.device)
+        else:
+            mesh = make_mesh(device=args.device)
+        logging.info("sharded engine: %s mesh %s on %s", mesh.axis_names,
+                     tuple(mesh.devices.shape),
+                     sorted({str(d) for d in mesh.devices.flat}))
+        return SearchEngine.sharded(art, enc, mesh, cfg, bank_dtype=bank)
     return SearchEngine(art, enc, cfg, bank_dtype=bank, device=args.device)
 
 
@@ -188,9 +193,12 @@ def make_parser() -> argparse.ArgumentParser:
                              "without one) or on the CPU with the plain "
                              "PyTorch versions of the kernels")
     parser.add_argument("--sharded", action="store_true",
-                        help="not ported yet: exits non-zero")
+                        help="shard the index over every visible card (one "
+                             "CPU shard with --device cpu)")
     parser.add_argument("--mesh", default=None, metavar="DP,SHARD",
-                        help="not ported yet: exits non-zero")
+                        help="2-D deployment mesh: DP index replicas x SHARD "
+                             "document shards, one card each (CPU shards "
+                             "with --device cpu)")
     parser.add_argument("--queries", default="queries.txt")
     parser.add_argument("--encoder-ckpt", default=None,
                         help="trained encoder checkpoint dir (config.json + "
@@ -240,7 +248,6 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main():
     args = make_parser().parse_args()
-    refuse_unported(args)
 
     logging.basicConfig(level=logging.INFO)
     from modern_search_engines_project_tpu_torch.serving.api import (

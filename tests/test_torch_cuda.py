@@ -1412,3 +1412,83 @@ def test_cross_encoder_training_on_card_matches_cpu(cuda, tmp_path):
     q, docs = trip[0][0], [t for _, t, _ in trip[:6]]
     np.testing.assert_allclose(again.rescore(q, docs), card.rescore(q, docs),
                                rtol=0, atol=1e-3)  # f16 checkpoint
+
+
+# ---- the sharded backend on the card ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sharded_card(cuda):
+    """A 300-doc index as one engine on the card and as eight shards on
+    the same card."""
+    from modern_search_engines_project_tpu_torch.parallel.sharding import Mesh
+
+    docs, words = _docs(1)
+    cfg = Config(embedding_dim=64, window_size=64, step_size=50,
+                 top_k_retrieval=200, top_k_reranking=10)
+    enc = HashingEncoder(dim=64)
+    art = IndexBuilder(enc, cfg).build(docs)
+    one = SearchEngine(art, enc, cfg)
+    mesh = Mesh(np.array([cuda] * 8, dtype=object), ("shard",))
+    return one, SearchEngine.sharded(art, enc, mesh, cfg), words
+
+
+@pytest.mark.parametrize("B,kernel", [(1, "bm25_slots"),
+                                      (16, "bm25_slots_udedup_sublane"),
+                                      (64, "bm25_slots_udedup_i8")])
+def test_eight_shards_on_one_card_match_one_engine(sharded_card, B, kernel):
+    """Eight shards on one card against the one-card engine: scores to
+    1e-3 (kernel 4 sums in another order a shard); each shard launches the
+    batch's BM25 kernel once and kernel 4 once a bucket."""
+    one, sharded, words = sharded_card
+    rng = np.random.default_rng(B)
+    n_words = 4 if B < 64 else 8
+    qs = [" ".join(rng.choice(words, n_words)) for _ in range(B)]
+    want = one.search_batch(qs, top_k=10)
+    before = {k.name: k.launches for k in cuda_lib.KERNELS}
+    got = sharded.search_batch(qs, top_k=10)
+    ran = {k.name: k.launches - before[k.name] for k in cuda_lib.KERNELS}
+    n_buckets = len(sharded.didx.buckets)
+    assert ran == {k.name: 8 if k.name == kernel else
+                   8 * n_buckets if k is STATS_KERNEL else 0
+                   for k in cuda_lib.KERNELS}, ran
+    assert sum(len(w) for w in want) > 0
+    _same_results(got, want)
+    assert sharded._backend.last_collectives == {"gather": 1, "max": 2}
+    for q in qs[:2]:
+        a, b = sharded.bm25_search(q, top_k=20), one.bm25_search(q, top_k=20)
+        np.testing.assert_allclose([x["score"] for x in a],
+                                   [x["score"] for x in b], rtol=0, atol=1e-5)
+        _same_results([sharded.dense_search(q, top_k=10)],
+                      [one.dense_search(q, top_k=10)])
+
+
+@pytest.mark.parametrize("B", [1, 16, 64])
+def test_scatter_stage1_matches_slot_kernels(sharded_card, cuda, B):
+    """The CSR scatter (``index_add_``, no fixed order on the card) against
+    kernel 1 on each shard's own postings: keyed scores to 1e-5, the same
+    matched set; the use_pallas=False engine against the kernel engine."""
+    from modern_search_engines_project_tpu_torch.retrieval import ops
+    from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
+        bm25_score_slots,
+    )
+
+    one, sharded, words = sharded_card
+    rng = np.random.default_rng(100 + B)
+    qs = [" ".join(rng.choice(words, 5)) for _ in range(B)]
+    tids, qtf, _ = one.prepare_queries(qs)
+    t = torch.as_tensor(tids, device=cuda)
+    q = torch.as_tensor(qtf, device=cuda)
+    s = sharded.didx
+    for sh in s.shards:
+        got = ops.bm25_score_batch(sh.indptr, sh.post_docs, sh.post_impact,
+                                   t, q, n_docs_pad=s.d_loc,
+                                   posting_cap=s.posting_cap)[:, : s.d_loc]
+        want = bm25_score_slots(sh, t, q)[:, : s.d_loc]
+        assert torch.equal(got < 0, want < 0)
+        assert (got - want).abs().max().item() <= 1e-5
+    scatter = SearchEngine(one.art, one.encoder, one.cfg, use_pallas=False)
+    before = {k.name: k.launches for k in cuda_lib.KERNELS}
+    got = scatter.search_batch(qs, top_k=10)
+    assert {k.name: k.launches for k in cuda_lib.KERNELS} == before
+    _same_results(got, one.search_batch(qs, top_k=10))

@@ -194,6 +194,72 @@ def test_scan_covers_the_data_plane_source():
     assert PORT / "serving" / "http.py" in SOURCES
 
 
+def test_scan_covers_the_parallel_package():
+    for name in ("__init__.py", "sharding.py", "multihost.py"):
+        assert PORT / "parallel" / name in SOURCES
+
+
+def test_sharded_serving_runs_with_jax_blocked():
+    """``parallel/`` imports and runs on the CPU with jax and flax not
+    importable: the sharded engine on a 1-D and a (dp, shard) mesh of CPU
+    shards (kernel path and scatter stage 1), the engine's scatter path,
+    and the multihost module's mesh over a process layout."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None  # any import of jax now fails
+        sys.modules["flax"] = None
+        import numpy as np
+        import torch
+        from modern_search_engines_project_tpu_torch import parallel
+        from modern_search_engines_project_tpu_torch.parallel import (
+            multihost, sharding)
+        from modern_search_engines_project_tpu_torch.config import Config
+        from modern_search_engines_project_tpu_torch.index import (
+            Document, IndexBuilder)
+        from modern_search_engines_project_tpu_torch.models import HashingEncoder
+        from modern_search_engines_project_tpu_torch.retrieval import SearchEngine
+        abc = "abcdefghijklmnopqrstuvwxyz"
+        words = [f"w{a}{b}q" for a in abc for b in abc]
+        texts = [" ".join(words[(i * 13 + j * 29) % 676] for j in range(8))
+                 for i in range(40)]
+        docs = [Document(i, f"https://www.s{i % 5}.de/{i}", f"t{i}", t)
+                for i, t in enumerate(texts)]
+        cfg = Config(embedding_dim=32, window_size=32, step_size=25,
+                     top_k_retrieval=20, top_k_reranking=5)
+        enc = HashingEncoder(dim=32)
+        art = IndexBuilder(enc, cfg).build(docs)
+        one = SearchEngine(art, enc, cfg, device="cpu")
+        want = [[r.doc_id for r in x]
+                for x in one.search_batch([texts[3][:10], texts[7]], top_k=5)]
+        meshes = [parallel.make_mesh(4, device="cpu"),
+                  sharding.make_mesh_2d(2, 2, device="cpu")]
+        for mesh in meshes:
+            for up in (None, False):
+                eng = SearchEngine.sharded(art, enc, mesh, cfg, use_pallas=up)
+                got = [[r.doc_id for r in x] for x in eng.search_batch(
+                    [texts[3][:10], texts[7]], top_k=5)]
+                assert got == want, (got, want)
+                assert eng.bm25_search(texts[7]) and eng.dense_search(texts[7])
+        scatter = SearchEngine(art, enc, cfg, device="cpu", use_pallas=False)
+        assert scatter.search(texts[7], top_k=5)
+        grid = np.array([[torch.device("cpu")] * 2] * 2, dtype=object)
+        mesh = multihost.make_multihost_mesh(grid, hierarchical=True)
+        assert mesh.shape == {"host": 2, "shard": 2}
+        loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
+                  or m.startswith("modern_search_engines_project_tpu.")]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_serving_runs_with_jax_and_aiohttp_blocked(tmp_path):
     """Every module of the serving slice imports with neither jax nor
     aiohttp importable, and the control plane serves one /api/search on

@@ -141,9 +141,11 @@ def test_build_half_done_by_one_package_resumed_by_the_other(
 
 
 def test_a_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Anything but a ``parallel.sharding.Mesh`` is refused as a mesh (a
+    real mesh splits the batch: ``tests/test_torch_sharding.py``)."""
+    with pytest.raises(TypeError, match="Mesh"):
         DataParallelEncoder(HashingEncoder(dim=8), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         BuildPipeline(HashingEncoder(dim=8), "unused", mesh=object())
     enc = DataParallelEncoder(HashingEncoder(dim=8))
     assert enc.dim == 8

@@ -2,7 +2,10 @@
 (``python -m modern_search_engines_project_tpu_torch.serving --device
 cpu``): the demo index with and without the C++ data plane, a saved index
 with ``--int8-bank`` on both planes, ``--workers 2`` sharing one port, a
-clean exit on SIGTERM, and ``--sharded`` / ``--mesh`` refused."""
+clean exit on SIGTERM, ``--sharded`` (one CPU shard) and ``--mesh 2,4``
+(eight CPU shards) serving the demo index as the one-device server does,
+and both exiting non-zero with ``--device cuda`` where too few cards are
+visible."""
 
 import json
 import os
@@ -161,10 +164,43 @@ def test_two_workers_share_port(boot):
 
 @pytest.mark.parametrize("flags", [["--sharded"], ["--mesh", "2,4"]])
 def test_sharded_and_mesh_exit_non_zero(flags):
+    """``--device cuda`` with fewer cards than the mesh needs exits
+    non-zero with the mesh constructor's message: no card at all for
+    ``--sharded``, fewer than eight for ``--mesh 2,4`` (never one card or
+    the CPU quietly)."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n >= (1 if flags[0] == "--sharded" else 8):
+        pytest.skip(f"{n} cards visible: {flags} would serve")
     out = subprocess.run(
-        [sys.executable, "-m", MODULE, "--device", "cpu", "--port",
+        [sys.executable, "-m", MODULE, "--device", "cuda", "--port",
          str(_free_port()), *flags],
         capture_output=True, text=True, env=_env(), timeout=120,
     )
     assert out.returncode != 0
-    assert "ROADMAP.md" in out.stderr and "item 7" in out.stderr
+    want = "no CUDA device" if flags[0] == "--sharded" else "Mesh("
+    assert want in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("flags,shape", [
+    (["--sharded"], "('shard',) mesh (1,)"),
+    (["--mesh", "2,4"], "('dp', 'shard') mesh (2, 4)"),
+], ids=["sharded", "mesh-2x4"])
+def test_sharded_and_mesh_serve_search(boot, flags, shape):
+    """The sharded engine behind /api/search on CPU shards: the same
+    documents and scores as the one-device server on the demo index."""
+    proc, port = boot(*flags, "--query-cache", "0", "--no-warmup")
+    one, one_port = boot("--query-cache", "0", "--no-warmup")
+    _wait_health(port, proc)
+    _wait_health(one_port, one)
+    for q in ("castle neckar", "tuebingen university research"):
+        got, _ = _post(port, "/api/search", {"query": q, "top_k": 5})
+        want, _ = _post(one_port, "/api/search", {"query": q, "top_k": 5})
+        assert got["documents"]
+        assert [d["doc_id"] for d in got["documents"]] == [
+            d["doc_id"] for d in want["documents"]]
+        for a, b in zip(got["documents"], want["documents"]):
+            assert abs(a["score"] - b["score"]) < 1e-5
+    assert _stop(proc) in (0, -signal.SIGTERM)
+    assert shape in Path(proc.log_path).read_text(errors="replace")
