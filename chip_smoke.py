@@ -76,7 +76,8 @@ non-zero exit):
      to the CPU port's int8 engine); and the serving CLI booted as a
      subprocess on a saved 10,000-doc cut with --int8-bank and
      --fastpath-port (both planes the same docs, exit 0 or -15 on
-     SIGTERM);
+     SIGTERM); both loads go through ``eval.load_test`` (its
+     ``data_plane_load`` and ``http_load``, each in a separate process);
   5e. the offline path at full width (12 layers, 768 wide; warm-started
      from runs/encoder-real where it is present, else from --seed):
      stage A InfoNCE at B = 256, L = 128, hard negatives mined with the
@@ -91,7 +92,8 @@ non-zero exit):
      CrawlStore (the same artifacts); search_batch on the built index at
      B = 1, 16, 64 (launches as in 5, the numpy oracle); the
      cross-encoder trainer and its save, save_decoder, and the training
-     CLI at its defaults as a subprocess; outputs under
+     CLI at its defaults but for 512 synthetic pairs (depth cut from its
+     default 2,048, ~30 s saved) as a subprocess; outputs under
      build/offline_smoke/;
   5f. the sharded backend on the 100k index: ``SearchEngine.sharded`` over
      eight shards on the card (``Mesh([cuda:0] * 8, ("shard",))``) at B =
@@ -106,10 +108,36 @@ non-zero exit):
      one-card ranking of the demo corpus; the serving CLI with
      ``--sharded`` on phase 5d's cut; with several cards, the shards over
      distinct cards;
+  5g. the last modules: (a) the dp x tp training step at runs/encoder-
+     real's configuration (12L/768d; warm-started from it where present,
+     else from --seed) on ``Mesh([cuda:0] * 4).reshape(2, 2), ("dp",
+     "tp"))``: one f32 step at B = 8, L = 32 against the one-card trainer
+     (loss to 1e-5, every gradient leaf and every updated leaf to 1e-4 of
+     its largest magnitude), stage A's shapes (InfoNCE, B = 256, L = 128)
+     timed beside one card (step ms, tokens/s, device operations, busy and
+     idle share, peak memory), ``train_cli --dp 2 --tp 2`` refused with
+     fewer than four cards, and with four or more cards the mesh over
+     distinct cards too; (b) ``entry()``'s flagship forward at (8, 512) on
+     the card against the CPU port (5e-3), ``dryrun_multichip(8)`` on the
+     card; (c) ``dedup_query_terms_device`` on phase 3's B = 16 and 64
+     batches: equal to the host dedup bit for bit, free of host syncs,
+     kernels 2 / 3 fed from it equal to the host route bit for bit, a
+     budget below the distinct count dropping ids as on the CPU; (d) the
+     load test's CLI (``eval.load_test --native engine``) as a subprocess;
+     (e) the real-text pass: 2,000 pages of the installed packages'
+     docstrings (``tools/make_real_corpus.build_site``) on 8 loopback
+     hosts served by ``http.server``, crawled by the port's crawler
+     (asyncio transport, stdlib parser; no /private page stored),
+     ``merge_crawls``, ``BuildPipeline`` with the bi-encoder on the card,
+     ``search_batch`` at B = 1 / 16 / 64 (launches as in 5, top-10
+     against the numpy oracle), ``POST /api/batch_search_file``, and
+     recall@10 / NDCG@10 against the oracle printed; outputs under
+     build/real_smoke/;
   6. small phases: an empty index (served by the blocked kernel, every
      entry point returns []); U = 1152 distinct terms and T = 80 term
      slots on every BM25 kernel (kernels 1-3 and 5-8) against its plain
-     version;
+     version, and the device dedup of that batch feeding kernels 2 and 3
+     (as in 5g (c));
      approx_candidates=True equal to the exact engine;
   7. a {"kernels": [...]} JSON line (time, bound, plain time, error per kernel),
      the nvidia-smi line, and the final {"ok": true, ...} line.
@@ -118,6 +146,7 @@ non-zero exit):
 from __future__ import annotations
 
 import argparse
+import asyncio
 import collections
 import copy
 import dataclasses
@@ -129,6 +158,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -137,7 +167,15 @@ import torch
 
 from modern_search_engines_project_tpu_torch import bench_kernels
 from modern_search_engines_project_tpu_torch.config import Config
-from modern_search_engines_project_tpu_torch.crawler import CrawlStore
+from modern_search_engines_project_tpu_torch.crawler import (
+    AsyncioTransport,
+    Crawler,
+    CrawlStore,
+    Fetcher,
+)
+from modern_search_engines_project_tpu_torch.crawler.preprocess import merge_crawls
+from modern_search_engines_project_tpu_torch.entry import dryrun_multichip, entry
+from modern_search_engines_project_tpu_torch.eval import load_test
 from modern_search_engines_project_tpu_torch.index import (
     BuildPipeline,
     Document,
@@ -170,6 +208,7 @@ from modern_search_engines_project_tpu_torch.models import (
     train_cross_encoder,
 )
 from modern_search_engines_project_tpu_torch.models.decoder import build_decoder
+from modern_search_engines_project_tpu_torch.parallel.sharding import Mesh
 from modern_search_engines_project_tpu_torch.retrieval import cuda_lib, ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     BLOCKED_KERNEL,
@@ -183,12 +222,15 @@ from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
     UDEDUP_KERNELS,
     _slots_key,
     bm25_score_slots,
+    bm25_score_slots_udedup,
     dedup_query_terms,
+    dedup_query_terms_device,
     slots_keyed,
     slots_plain,
     slots_udedup_keyed,
     slots_udedup_plain,
     u_pad_for,
+    udedup_plan,
 )
 from modern_search_engines_project_tpu_torch.retrieval.dense_stats import (
     bucket_sims,
@@ -917,6 +959,34 @@ def check_wide_batches(seed, dev):
                           device_ms(small[k_name][0], 20)}
     log(f"U=1152 (T=80) against the plain versions, max abs err: {errs}")
     log(f"wide batches, 17 queries on 12,000 docs, kernel ms: {json.dumps(ms)}")
+    return device_dedup_wide(stream, vt, vi, tids, qtf, dev)
+
+
+def device_dedup_wide(stream, vt, vi, tids, qtf, dev):
+    """Phase 5g (c) on the U = 1152 / T = 80 batch: the device dedup equal
+    to the host's bit for bit, with no host sync, and kernels 2 and 3 fed
+    from it equal to the host route bit for bit.  Returns the launches of
+    the device route's kernel calls."""
+    uids_h, w_h = dedup_query_terms(tids, qtf)
+    t, q = (torch.as_tensor(x, device=dev) for x in (tids, qtf))
+    uids_d, w_d = check_sync_free(
+        lambda: dedup_query_terms_device(t, q, uids_h.size),
+        f"dedup_query_terms_device U={uids_h.size}, T=80")
+    check(np.array_equal(uids_d.cpu().numpy(), uids_h)
+          and np.array_equal(w_d.cpu().numpy(), w_h),
+          "device dedup U=1152: differs from the host's")
+    u_h, w_ht = (torch.as_tensor(x, device=dev) for x in (uids_h, w_h))
+    launches = {}
+    for v in ("sublane", "i8"):
+        want = slots_udedup_keyed(stream, vt, vi, u_h, w_ht, v)
+        reset_launches()
+        got = slots_udedup_keyed(stream, vt, vi, uids_d, w_d, v)
+        launches[f"U=1152 {v}"] = read_launches()
+        check(torch.equal(got, want),
+              f"device dedup U=1152: kernel {v} differs from the host route")
+    log(f"  device dedup U={uids_h.size}, T=80: equal to the host's; kernels 2 "
+        f"and 3 fed from it == the host route bit for bit")
+    return launches
 
 
 def profile_call(fn):
@@ -1487,40 +1557,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # The CLI's saved index: the first 10,000 docs of the 100k corpus (the save,
 # the subprocess's load and its warmup stay within seconds).
 SERVE_CUT_DOCS = 10_000
-# The control plane's load: 64 clients, 8 requests each, over the same 256
-# distinct queries as the data plane's 4,000.
-CP_CLIENT = """
-import http.client, json, sys, threading, time
-port, n_clients, per, bodies = json.loads(sys.argv[1])
-lat, errs = [], []
-def run(i):
-    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    for j in range(per):
-        t0 = time.perf_counter()
-        try:
-            c.request("POST", "/api/search", bodies[(i * per + j) % len(bodies)],
-                      {"Content-Type": "application/json"})
-            r = c.getresponse()
-            r.read()
-            if r.status != 200:
-                errs.append(r.status)
-        except Exception as e:
-            errs.append(repr(e))
-        lat.append(time.perf_counter() - t0)
-    c.close()
-t0 = time.perf_counter()
-ts = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
-for t in ts:
-    t.start()
-for t in ts:
-    t.join()
-wall = time.perf_counter() - t0
-lat.sort()
-pct = lambda q: lat[int(q * (len(lat) - 1))] * 1e3
-print(json.dumps({"requests": len(lat), "errors": len(errs), "wall_s": wall,
-                  "qps": len(lat) / wall, "p50_ms": pct(0.5),
-                  "p95_ms": pct(0.95), "p99_ms": pct(0.99)}))
-"""
 Row = collections.namedtuple("Row", "doc_id similarity_score window_index")
 
 
@@ -1545,25 +1581,12 @@ def http_json(port, method, path, payload=None, timeout=300):
         c.close()
 
 
-def run_client(code, what):
-    """Run a load client as a separate process; its last stdout line is
-    its JSON result."""
-    out = subprocess.run([sys.executable, "-c", *code], capture_output=True,
-                         text=True, timeout=900, cwd=ROOT)
-    check(out.returncode == 0,
-          f"{what}: client failed: {out.stdout[-400:]} {out.stderr[-800:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
-def bench_data_plane(port, bodies, what):
-    """``client_bench``: 64 connections, 4,000 requests rotating over
-    ``bodies``, from a separate process."""
-    return run_client(
-        [f"import json, sys; sys.path.insert(0, {ROOT!r}); "
-         "from modern_search_engines_project_tpu_torch.native.native_http "
-         "import client_bench; print(json.dumps(client_bench("
-         f"{port}, n_conns=64, total_requests=4000, timeout_s=600, "
-         f"bodies={bodies!r})))"], what)
+def data_plane_load(port, bodies):
+    """The data plane's load (``eval.load_test.data_plane_load``, a separate
+    process): 64 connections, 4,000 requests rotating over ``bodies``."""
+    return load_test.in_subprocess("data_plane_load", port=port,
+                                   bodies=bodies, n_conns=64,
+                                   total_requests=4000, timeout_s=600)
 
 
 def same_docs(got, want, what, rtol=1e-5):
@@ -1690,7 +1713,7 @@ def serving_phase(seed, eng, art, words, dfs, cfg, enc, slot_batches, name,
             reset_launches()
             eng_w.times = StageTimes()
             before = fast.stats()
-            res = bench_data_plane(fast.port, bodies, "data plane")
+            res = data_plane_load(fast.port, bodies)
             after = fast.stats()
             counts = read_launches()
             host = {k: v["mean_ms"] for k, v in eng_w.times.report().items()}
@@ -1718,7 +1741,7 @@ def serving_phase(seed, eng, art, words, dfs, cfg, enc, slot_batches, name,
     attach_stub(stub, art.n_chunks, k=10)
     stub.start()
     try:
-        res = bench_data_plane(stub.port, bodies, "data plane stub")
+        res = data_plane_load(stub.port, bodies)
         st = stub.stats()
     finally:
         stub.stop()
@@ -1767,8 +1790,9 @@ def serving_phase(seed, eng, art, words, dfs, cfg, enc, slot_batches, name,
             f"ms on the host")
         reset_launches()
         b0 = svc.batcher.stats()
-        res = run_client([CP_CLIENT, json.dumps([srv.port, 64, 8, bodies])],
-                         "control plane")
+        res = load_test.in_subprocess("http_load", port=srv.port,
+                                      bodies=bodies, n_clients=64,
+                                      n_requests=512)
         counts = read_launches()
         st, tm = http_json(srv.port, "GET", "/api/timings")
         b1 = tm["online_batching"]
@@ -1975,6 +1999,9 @@ TRAIN_TOL = {"float32": (1e-5, 0.0, 1e-4), "bfloat16": (0.0, 5e-3, 5e-2)}
 # L = 128; STEPS steps a stage, then TIMED_STEPS timed warm steps a loss.
 STAGE_A_B, STAGE_B_B, TRAIN_L, STEPS, TIMED_STEPS = 256, 160, 128, 10, 3
 BUILD_DOCS, BUILD_SHARD = 2_000, 512
+# train_cli's synthetic pairs (its default is 2,048; 512 keeps its 12L/768d
+# cosine run to a dozen steps)
+CLI_PAIRS = 512
 # An f16 checkpoint against the f32 tower it was saved from: ~1/16 of the
 # weights round to another bf16 value through f16 (double rounding; more
 # among f16 subnormals), so unit embeddings move by up to a few 1e-3
@@ -2192,8 +2219,9 @@ def training_phase(seed, words, dfs, cfg, name, smi):
       (f) ``train_cross_encoder`` at ``CE_CFG`` (B = 16, L = 192), ``save``
           and ``from_checkpoint``; ``save_decoder`` and ``load_decoder``
           (runs/summarizer-real where present, else ``DEC_CFG`` from the
-          seed), the same greedy tokens; ``train_cli`` at its defaults as
-          a subprocess (12L/768d, 2,048 synthetic pairs, 5 negatives).
+          seed), the same greedy tokens; ``train_cli`` at its defaults
+          but for CLI_PAIRS synthetic pairs, as a subprocess (12L/768d, 5
+          negatives).
     Returns the launch counts of the (e) batches."""
     t_phase = time.time()
     shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
@@ -2452,8 +2480,8 @@ def other_trainers(seed, pairs, name, smi):
     run = subprocess.run(
         [sys.executable, "-m",
          "modern_search_engines_project_tpu_torch.models.train_cli",
-         "--out", out], cwd=ROOT, capture_output=True, text=True,
-        timeout=900)
+         "--out", out, "--synthetic", str(CLI_PAIRS)], cwd=ROOT,
+        capture_output=True, text=True, timeout=900)
     t_cli = time.time() - t0
     check(run.returncode == 0,
           f"train_cli: exit {run.returncode}: {run.stderr[-2000:]}")
@@ -2462,8 +2490,8 @@ def other_trainers(seed, pairs, name, smi):
     check(cli_enc.cfg == EncoderConfig()
           and np.isfinite(cli_enc.encode_batch(["castle neckar"])).all(),
           f"train_cli checkpoint: {cli_enc.cfg}")
-    log(f"  train_cli at its defaults (12L/768d, 2,048 synthetic pairs, 5 "
-        f"negatives, cosine, B = 256) on {name}: exit 0 in {t_cli:.1f} s "
+    log(f"  train_cli at its defaults but --synthetic {CLI_PAIRS} (12L/768d, "
+        f"5 negatives, cosine, B = 256) on {name}: exit 0 in {t_cli:.1f} s "
         f"wall; {tail}")
 
 
@@ -2841,6 +2869,462 @@ def sharded_phase(seed, eng, art, cfg, enc, slot_batches, results, name,
 
 
 
+# ---- phase 5g: the last modules --------------------------------------------
+
+# (a): the dp x tp step against one card in f32 (the row products' sums in
+# f32 are the only change of summation order): loss to 1e-5, every
+# gradient leaf and every updated leaf to 1e-4 of its largest magnitude.
+TP_LOSS_ATOL, TP_LEAF_TOL = 1e-5, 1e-4
+TP_MESH = (2, 2)  # dp x tp
+# (e): the real-text pass: pages of installed packages' documentation,
+# served on this many loopback hosts
+REAL_DOCS, REAL_HOSTS = 2_000, 8
+REAL_DIR = os.path.join(ROOT, "build", "real_smoke")
+
+
+def tp_mesh(devices):
+    """A (dp, tp) = TP_MESH mesh over ``devices`` (4 entries)."""
+    return Mesh(np.array(devices, dtype=object).reshape(*TP_MESH),
+                ("dp", "tp"))
+
+
+def shard_grads(sharded, grads):
+    """Give ``sharded``'s master shards the one-card trainer's gradients
+    (by ``BiEncoder`` state-dict name), split as its layout splits them."""
+    tp = sharded.model.tp
+    for n, ps in sharded.model.shards.items():
+        ax = sharded.model.axis[n]
+        parts = [grads[n]] if ax is None else grads[n].chunk(tp, dim=ax)
+        for p, g in zip(ps, parts):
+            p.grad = g.to(p.device, copy=True).contiguous()
+
+
+def tp_against_one_card(tree, devices, triples):
+    """(a), first part: one f32 step at B = 8, L = 32 (``infonce_hn``) of
+    the dp x tp trainer on ``devices`` and of the one-card trainer, same
+    tree and batch: the losses, every gradient leaf, then every leaf after
+    an update at the schedule's full rate.  Both optimizers step from the
+    one-card gradients (the masters receive them split by the layout), so
+    near-zero gradients, whose Adam steps flip sign with rounding, do not
+    mask a fault of the sharded update; the leaves after each trainer's
+    own gradients are printed.  Returns the errors."""
+    cfg = dataclasses.replace(EncoderConfig(), dtype="float32")
+    tcfg = TrainConfig(loss="infonce_hn", max_len=32, batch_size=8)
+    one = Trainer(cfg, tcfg).init(10, params=tree)
+    tp = Trainer(cfg, tcfg, mesh=tp_mesh(devices)).init(10, params=tree)
+    batch = one.encode_pairs(triples)
+    out, losses = {}, []
+    for tr in (one, tp):
+        loss = tr.loss(tr.upload_batch(batch))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    check(abs(losses[0] - losses[1]) <= TP_LOSS_ATOL,
+          f"dp x tp vs one card: loss {losses[1]} vs {losses[0]}")
+    g_one, g_tp = tree_leaves(one.grads()), tree_leaves(tp.grads())
+    worst, leaf = worst_leaf(g_tp, g_one)
+    check(worst <= TP_LEAF_TOL, f"dp x tp vs one card: gradient {leaf} off "
+          f"by {worst} of its largest magnitude")
+    out.update(loss_one=losses[0], loss_tp=losses[1],
+               loss_abs_err=abs(losses[0] - losses[1]),
+               grad_worst_rel_err=worst, grad_worst_leaf=leaf)
+    own = [p.grad.clone() for p in tp.model.parameters()]
+    grads = {n: p.grad for n, p in one.model.named_parameters()}
+    shard_grads(tp, grads)
+    for tr in (one, tp):
+        tr.step_count = 1  # the schedule's full rate (step 0 has rate 0)
+        tr.update()
+    p_one, p_tp = tree_leaves(one.params), tree_leaves(tp.params)
+    worst, leaf = worst_leaf(p_tp, p_one)
+    check(worst <= TP_LEAF_TOL, f"dp x tp vs one card: updated {leaf} off by "
+          f"{worst} of its largest magnitude")
+    out.update(updated_worst_rel_err=worst, updated_worst_leaf=leaf)
+    # the same update from each trainer's own gradients, printed only
+    tp2 = Trainer(cfg, tcfg, mesh=tp_mesh(devices)).init(10, params=tree)
+    for p, g in zip(tp2.model.parameters(), own):
+        p.grad = g
+    tp2.step_count = 1
+    tp2.update()
+    out["own_grads_updated_worst_rel_err"], _ = worst_leaf(
+        tree_leaves(tp2.params), p_one)
+    return out
+
+
+def timed_tp(tree, devices, pairs, name, smi, what):
+    """(a), second part: stage A's shapes (InfoNCE, B = 256, L = 128) on
+    the dp x tp mesh over ``devices`` and on one card in the same run:
+    warm step ms, tokens/s, device operations, busy and idle share of one
+    traced step (``time_train_steps``), peak memory."""
+    tcfg = TrainConfig(loss="infonce", batch_size=STAGE_A_B, max_len=TRAIN_L)
+    rows = {}
+    for label, mesh in (("one card", None), (what, tp_mesh(devices))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(EncoderConfig(), tcfg, mesh=mesh)
+        tr.init(10 * TIMED_STEPS, params=tree)
+        batch = tr.encode_pairs([(q, p, 1.0) for q, p in pairs[:STAGE_A_B]])
+        tr.step(batch)  # warm
+        time_train_steps(tr, batch, f"stage A infonce, {label}", name, smi)
+        rows[label] = torch.cuda.max_memory_allocated() / 2**30
+        del tr
+    log(f"  peak device memory (GiB, torch.cuda.max_memory_allocated): "
+        f"{json.dumps(rows)}")
+
+
+def tp_phase(seed, words, dfs, name, smi):
+    """Phase 5g (a), the dp x tp training step at the flagship's width
+    (12 layers, 768 wide; warm-started from runs/encoder-real where it is
+    present, else weights drawn from ``seed``) on ``Mesh([cuda:0] * 4)
+    .reshape(2, 2), ("dp", "tp"))``: one f32 step against the one-card
+    trainer (``tp_against_one_card``), then stage A's shapes timed beside
+    one card (``timed_tp``); with four or more cards visible, the mesh
+    over distinct cards as well."""
+    t0 = time.time()
+    enc_cfg = EncoderConfig()
+    real = os.path.join(ROOT, "runs", "encoder-real")
+    if os.path.exists(os.path.join(real, "params.msgpack")):
+        tree, _ = load_encoder(real)
+        start = "runs/encoder-real"
+    else:
+        rng = np.random.default_rng(seed + 8)
+        tree = init_reference_params(
+            enc_cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+        start = f"weights drawn from seed {seed + 8}"
+    windows = SyntheticWindows(seed + 8, words, dfs, STAGE_A_B + 16)
+    df_of = dict(zip(words, dfs))
+    pairs = [(" ".join(sorted(set(w[:-1].replace(". ", " ").split()),
+                              key=df_of.get)[:3]), w)
+             for w in (windows[i] for i in range(STAGE_A_B + 16))]
+    small = [(q[:60], p[:300], pairs[i + 8][1][:300])
+             for i, (q, p) in enumerate(pairs[:8])]
+    layouts = [("dp 2 x tp 2 on one card", [resolve_device(None)] * 4)]
+    if torch.cuda.device_count() >= 4:
+        layouts.append(("dp 2 x tp 2 on four cards",
+                        [torch.device("cuda", i) for i in range(4)]))
+    else:
+        log(f"  one card visible ({torch.cuda.device_count()}): the mesh over "
+            f"distinct cards is not run")
+    n_cards = torch.cuda.device_count()
+    run = subprocess.run(
+        [sys.executable, "-m",
+         "modern_search_engines_project_tpu_torch.models.train_cli", "--dp",
+         "2", "--tp", "2", "--layers", "1", "--dim", "64", "--synthetic",
+         "16", "--batch-size", "8", "--out",
+         os.path.join(ROOT, "build", "tp_cli_encoder")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if n_cards < 4:
+        check(run.returncode != 0 and f"needs 4 visible CUDA devices, "
+              f"{n_cards} visible" in run.stderr,
+              f"train_cli --dp 2 --tp 2 on {n_cards} card(s): exit "
+              f"{run.returncode}, {run.stderr[-400:]}")
+    else:
+        check(run.returncode == 0, f"train_cli --dp 2 --tp 2: "
+              f"{run.stderr[-400:]}")
+    log(f"  train_cli --dp 2 --tp 2 with {n_cards} card(s) visible: exit "
+        f"{run.returncode}, {run.stderr.strip().splitlines()[-1][-120:]}")
+    for what, devices in layouts:
+        errs = tp_against_one_card(tree, devices, small)
+        log(f"  dp x tp step ({what}; {start}) against one card, f32, "
+            f"B = 8, L = 32, infonce_hn (loss {TP_LOSS_ATOL}, leaves "
+            f"{TP_LEAF_TOL}): {json.dumps(errs)}")
+        timed_tp(tree, devices, pairs, name, smi, what)
+    log(f"phase 5g (a) {time.time() - t0:.1f} s")
+
+
+def entry_phase(name, smi):
+    """Phase 5g (b): ``entry()``'s forward (12L/768d, B = 8, L = 512) on the
+    card against the port on the CPU (ENC_ATOL, as phase 5b), then
+    ``dryrun_multichip(8)`` on the card (eight entries, the card repeated).
+    Returns the dry run's launch counts."""
+    t0 = time.time()
+    fwd, args = entry()
+    got = fwd(*args).float().cpu()
+    fwd_c, args_c = entry(device="cpu")
+    want = fwd_c(*args_c).float()
+    err = float((got - want).abs().max())
+    check(got.shape == (8, 768) and err <= ENC_ATOL,
+          f"entry(): card vs cpu {err} (shape {tuple(got.shape)})")
+    ms = cuda_ms(lambda: fwd(*args), 5)
+    prof = profile_call(lambda: fwd(*args))
+    busy = ("not measured" if prof is None else
+            f"{prof['device_busy_ms']:.3f} ms busy, "
+            f"{prof['device_events']} device operations")
+    log(f"  entry(): the flagship forward at (8, 512) on the card == the cpu "
+        f"port (max abs err {err:.2e} <= {ENC_ATOL}); {ms:.3f} ms a forward "
+        f"(CUDA events, enqueue included), {busy}, bound "
+        f"{encoder_bound(EncoderConfig(), 8, 512)[0]:.3f} ms on {name} "
+        f"({smi})")
+    reset_launches()
+    res = dryrun_multichip(8)
+    counts = read_launches()
+    check(counts["bm25_slots"] > 0 and counts["dense_stats"] > 0,
+          f"dryrun_multichip(8): launches {counts}")
+    log(f"  dryrun_multichip(8) on {res['devices']}: loss {res['losses']}, "
+        f"results {len(res['shard'])} / "
+        f"{[len(r) for r in res['dp_shard']]} / "
+        f"{[len(r) for r in res['encoder']]}; launches {counts} "
+        f"({time.time() - t0:.1f} s)")
+    return {"8 entries": counts}
+
+
+def dedup_batches(eng, slot_batches):
+    """Phase 5g (c) on phase 3's slot batches at B = 16 and 64: the device
+    dedup equal to the host's bit for bit (pads -2 and 0 past the distinct
+    count), with no host sync; the batch's U-dedup kernel (2 at B = 16,
+    3 at B = 64, as ``udedup_plan`` picks) fed from it gives the host
+    route's keyed scores bit for bit; a batch over a budget below its
+    distinct count drops ids as the function does on the CPU.  Returns
+    the launches of the device route's kernel calls."""
+    launches = {}
+    for key in ("B=16", "B=64"):
+        tids, qtf, _ = eng.prepare_queries(slot_batches[key])
+        uids_h, w_h = dedup_query_terms(tids, qtf)
+        n = int((uids_h >= 0).sum())
+        u_pad = uids_h.size
+        t = torch.as_tensor(tids, device=eng.device)
+        q = torch.as_tensor(qtf, device=eng.device)
+        uids_d, w_d = check_sync_free(
+            lambda: dedup_query_terms_device(t, q, u_pad),
+            f"dedup_query_terms_device {key} (U = {u_pad})")
+        check(np.array_equal(uids_d.cpu().numpy(), uids_h)
+              and np.array_equal(w_d.cpu().numpy(), w_h),
+              f"device dedup {key}: differs from the host's")
+        check((uids_d[n:] == -2).all().item() and (w_d[:, n:] == 0).all().item(),
+              f"device dedup {key}: pads past U = {n}")
+        variant = udedup_plan(u_pad, len(tids))
+        want = bm25_score_slots_udedup(
+            eng.didx, torch.as_tensor(uids_h, device=eng.device),
+            torch.as_tensor(w_h, device=eng.device), variant)
+        reset_launches()
+        got = bm25_score_slots_udedup(eng.didx, uids_d, w_d, variant)
+        launches[key] = read_launches()
+        check(torch.equal(got, want), f"device dedup {key}: kernel "
+              f"{variant} scores differ from the host route's")
+        small = max(8, n // 2)
+        cut = dedup_query_terms_device(t, q, small)
+        ref = dedup_query_terms_device(t.cpu(), q.cpu(), small)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(cut, ref)),
+              f"device dedup {key}: the drop beyond u_pad = {small}")
+        log(f"  device dedup {key}: {n} distinct of U = {u_pad}, equal to the "
+            f"host's; kernel {variant} fed from it == the host route bit for "
+            f"bit, launches {launches[key]}; u_pad = {small} drops as on the "
+            f"cpu")
+    return launches
+
+
+def load_test_cli():
+    """Phase 5g (d), second part: the load test's CLI in native engine mode
+    as a subprocess (its own 4,000-doc engine on the card, the data
+    plane, 2,000 requests over 64 connections)."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m",
+         "modern_search_engines_project_tpu_torch.eval.load_test",
+         "--native", "engine", "--docs", "4000", "--requests", "2000",
+         "--port", str(free_port())],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(out.returncode == 0, f"load_test --native engine: "
+          f"{out.stdout[-400:]} {out.stderr[-800:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    check(rec["client"]["errors"] == 0 and rec["client"]["requests"] == 2000
+          and rec["device"].startswith("cuda"), f"load_test: {rec}")
+    log(f"  load_test --native engine (a subprocess, "
+        f"{time.time() - t0:.1f} s): {json.dumps(rec)}")
+
+
+def serve_site(site_dir):
+    """``http.server`` over ``site_dir`` in a thread, on every loopback
+    address; returns (server, port)."""
+    import functools
+    import http.server
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    class Server(http.server.ThreadingHTTPServer):
+        daemon_threads = True
+
+    httpd = Server(("0.0.0.0", 0),
+                   functools.partial(Quiet, directory=site_dir))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, httpd.server_address[1]
+
+
+def summary_query(site_dir, url):
+    """A module page's docstring summary line (its first paragraph's first
+    sentence, at most 12 words) read from the site's file; "" for the
+    index and archive pages."""
+    import html as html_mod
+    import re
+    import urllib.parse
+
+    rel = urllib.parse.urlsplit(url).path.lstrip("/")
+    if not rel.endswith(".html") or rel.startswith("archive/"):
+        return ""  # the root index and the archive pages hold no docstring
+    with open(os.path.join(site_dir, rel), encoding="utf-8") as f:
+        m = re.search(r"<p>(.*?)</p>", f.read(), re.S)
+    if not m:
+        return ""
+    text = html_mod.unescape(m.group(1)).split(". ")[0]
+    return " ".join(text.split()[:12])
+
+
+def real_text_phase(seed, cfg, name, smi):
+    """Phase 5g (e), the real-text pass (``tools/real_run.py``'s recipe on
+    the port): ``tools/make_real_corpus.build_site`` writes REAL_DOCS pages
+    of the installed packages' docstrings on REAL_HOSTS loopback hosts
+    (its robots.txt: ``Crawl-delay: 0``, ``/private`` disallowed),
+    ``http.server`` serves them, the port's crawler fetches them over its
+    asyncio transport with the stdlib parser into a ``CrawlStore`` (no
+    ``/private`` page stored), ``merge_crawls``, ``BuildPipeline`` with the
+    bi-encoder on the card (runs/encoder-real where present, else weights
+    from ``seed``), ``search_batch`` at B = 1 / 16 / 64 on summary-line
+    queries (launches as in phase 5, top-10 against the numpy oracle), and
+    ``POST /api/batch_search_file`` on the control plane; recall@10 and
+    NDCG@10 against the oracle printed, not gated.  Returns the
+    launches."""
+    import importlib.util
+
+    t_phase = time.time()
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    os.makedirs(REAL_DIR)
+    spec = importlib.util.spec_from_file_location(
+        "make_real_corpus", os.path.join(ROOT, "tools", "make_real_corpus.py"))
+    mrc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mrc)
+    site_dir = os.path.join(REAL_DIR, "site")
+    httpd, port = serve_site(site_dir)
+    bases = [f"http://127.0.0.{i}:{port}" for i in range(1, REAL_HOSTS + 1)]
+    try:
+        t0 = time.time()
+        man = mrc.build_site(site_dir, max_docs=REAL_DOCS, base_urls=bases)
+        log(f"real text: {man['n_pages']} pages ({man['n_private_pages']} "
+            f"under /private, {man['prose_bytes'] / 1e6:.1f} MB) of "
+            f"{len(man['packages'])} packages on {REAL_HOSTS} loopback hosts, "
+            f"written in {time.time() - t0:.1f} s")
+        store = CrawlStore(os.path.join(REAL_DIR, "crawl.sqlite"))
+        crawler = Crawler(store, fetcher=Fetcher(AsyncioTransport(timeout=5.0)),
+                          max_batch=100, content_filter=False,
+                          expand_threshold=-1.0)
+        t0 = time.time()
+        asyncio.run(crawler.run([bases[0] + "/"]))
+        t_crawl = time.time() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    docs = list(store.iter_documents(min_score=-1.0))
+    private = [d.url for d in docs if "/private/" in d.url]
+    check(not private, f"crawl stored robots-disallowed pages: {private[:3]}")
+    check(len(docs) >= 0.9 * (man["n_pages"] - man["n_private_pages"]),
+          f"crawl stored {len(docs)} of {man['n_pages']} pages")
+    log(f"  crawl (asyncio transport, stdlib parser): {len(docs)} pages in "
+        f"{t_crawl:.1f} s ({len(docs) / t_crawl:.1f} pages/s), {crawler.rounds} "
+        f"rounds, 0 under /private, {len(crawler.frontier)} left in the "
+        f"frontier")
+    merged = CrawlStore(os.path.join(REAL_DIR, "merged.sqlite"))
+    rep = merge_crawls(merged, store)
+    check(rep.merged > 0 and rep.incoming == len(docs), f"merge: {rep}")
+    log(f"  merge_crawls: {dataclasses.asdict(rep)}")
+    docs = [Document(i + 1, d.url, d.title, d.text)
+            for i, d in enumerate(merged.iter_documents(min_score=-1.0))]
+    real = os.path.join(ROOT, "runs", "encoder-real")
+    if os.path.exists(os.path.join(real, "params.msgpack")):
+        enc = TorchEncoder.from_checkpoint(real, batch_size=64, max_len=128)
+        start = "runs/encoder-real"
+    else:
+        enc = TorchEncoder(EncoderConfig(), batch_size=64, max_len=128,
+                           generator=torch.Generator().manual_seed(seed + 9))
+        start = f"weights drawn from seed {seed + 9}"
+    rcfg = cfg.replace(embedding_dim=enc.cfg.dim)
+    t0 = time.time()
+    art = BuildPipeline(enc, os.path.join(REAL_DIR, "index"), rcfg,
+                        shard_size=512).build(docs)
+    t_build = time.time() - t0
+    check(art.n_docs == len(docs) and np.isfinite(art.chunk_emb).all(),
+          f"real build: {art.n_docs} docs")
+    log(f"  BuildPipeline ({start}, on the card): {art.n_docs} docs, "
+        f"{art.n_chunks} windows, {art.n_terms} terms in {t_build:.1f} s "
+        f"({art.n_docs / t_build:.1f} docs/s, {art.n_chunks / t_build:.1f} "
+        f"windows/s) on {name} ({smi})")
+    eng = SearchEngine(art, enc, rcfg)
+    pool = []
+    for d in docs:
+        q = summary_query(site_dir, d.url)
+        if len(q.split()) >= 3 and q not in pool:
+            pool.append(q)
+        if len(pool) == 64:
+            break
+    check(len(pool) == 64, f"{len(pool)} summary-line queries")
+    batches = {"B=1": pool[:1], "B=16": pool[:16], "B=64": pool}
+    n_buckets = len(eng.didx.buckets)
+    launches, results = {}, {}
+    for key, qs in batches.items():
+        eng.search_batch(qs, top_k=10)  # warm
+        reset_launches()
+        results[key] = eng.search_batch(qs, top_k=10)
+        launches[key] = read_launches()
+        check_batch_launches(launches[key], 1, n_buckets, f"real text {key}")
+    _, _, processed = eng.prepare_queries(pool)
+    all_q = eng.encode_queries(processed).cpu().numpy()  # the engine's own
+    same_as_oracle(art, None, rcfg, results["B=16"], pool[:3],
+                   "real text B=16", qvecs=all_q)
+    p50 = {}
+    for key, qs in batches.items():
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.search_batch(qs, top_k=10)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        p50[key] = float(np.median(ts))
+    log(f"  search_batch on the real-text index: launches {launches}; p50 ms "
+        f"{json.dumps(p50)}; top-10 == numpy oracle on 3 queries")
+    # recall@10 / NDCG@10 against the oracle, for information
+    from modern_search_engines_project_tpu_torch.eval.metrics import (
+        ndcg_at_k,
+        recall_at_k,
+    )
+
+    bf = dataclasses.replace(
+        art, chunk_emb=torch.from_numpy(art.chunk_emb).bfloat16().float()
+        .numpy())
+    rec, ndcg = [], []
+    for i, (q, got) in enumerate(zip(pool, results["B=64"])):
+        o = hybrid_search_numpy(
+            bf, preprocess_query(q),
+            torch.from_numpy(all_q[i]).bfloat16().float().numpy(),
+            rcfg.top_k_retrieval, 10, rcfg.smoothing,
+            diversification=rcfg.diversification)
+        o_urls = [d.url for d in o]
+        e_urls = [d.url for d in got]
+        gains = {u: 10 - j for j, u in enumerate(o_urls)}
+        rec.append(recall_at_k(e_urls, set(o_urls), 10))
+        ndcg.append(ndcg_at_k(e_urls, gains, 10))
+    qpath = os.path.join(REAL_DIR, "queries.txt")
+    with open(qpath, "w", encoding="utf-8") as f:
+        f.writelines(f"{i + 1}\t{q}\n" for i, q in enumerate(pool[:16]))
+    svc = SearchService(eng, queries_path=qpath,
+                        results_path=os.path.join(REAL_DIR, "results.txt"))
+    srv = ServerThread(svc.build_app()).start()
+    try:
+        t0 = time.perf_counter()
+        st, body = http_json(srv.port, "POST", "/api/batch_search_file", {})
+        t_http = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    check(st == 200 and body["total_queries"] == 16
+          and body["total_results"] > 0, f"batch_search_file: {st} {body}")
+    with open(os.path.join(REAL_DIR, "results.txt"), encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(len(lines) == body["total_results"], "batch_search_file: the file")
+    log(f"  POST /api/batch_search_file: {body['total_queries']} queries, "
+        f"{body['total_results']} rows in {t_http * 1e3:.1f} ms; against the "
+        f"oracle over 64 queries (not gated; not comparable with "
+        f"docs/REAL_EVAL.md): recall@10 {np.mean(rec):.4f}, NDCG@10 "
+        f"{np.mean(ndcg):.4f}")
+    log(f"phase 5g (e) {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2984,9 +3468,20 @@ def main(argv=None) -> int:
                                         slot_batches, results["slots"], name,
                                         smi)
 
+    # --- phase 5g: the last modules ------------------------------------------
+    t_5g = time.time()
+    log("phase 5g: the dp x tp step, entry(), the device dedup, the load "
+        "test's CLI, the real-text pass")
+    tp_phase(args.seed, words, dfs, name, smi)
+    launches["dry run"] = entry_phase(name, smi)
+    launches["device dedup"] = dedup_batches(eng, slot_batches)
+    load_test_cli()
+    launches["real text"] = real_text_phase(args.seed, cfg, name, smi)
+    log(f"phase 5g {time.time() - t_5g:.1f} s")
+
     # --- phase 6: small phases ----------------------------------------------
     check_empty_index(cfg, enc)
-    check_wide_batches(args.seed, eng.device)
+    launches["device dedup"].update(check_wide_batches(args.seed, eng.device))
     eng_ax = SearchEngine(art, enc, cfg.replace(approx_candidates=True))
     check(eng_ax._approx, "approx_candidates=True did not resolve to True")
     for key in ("B=16", "B=64"):

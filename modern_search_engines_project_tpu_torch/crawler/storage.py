@@ -7,8 +7,7 @@ transactional); the *index* no longer lives in SQL at all — it is built
 from this store into array artifacts (index/builder.py).
 
 A copy of the reference package's ``crawler/storage.py`` (SQLite, no
-device code), for the port's index CLI (``index/__main__.py``); the rest
-of the crawler is not ported yet.
+device code).
 
 Tables:
   documents    — urlsDB analog (databaseManagement.py:18-51)

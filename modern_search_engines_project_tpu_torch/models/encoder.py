@@ -21,6 +21,12 @@ parameters give the same embeddings to bf16 rounding:
 Products run through ``torch.matmul``; this module holds no hand-written
 kernel (the reference's products are XLA einsums, not Pallas kernels).
 
+The arithmetic lives in functions over the weights (``layer_norm``,
+``attention``, ``geglu``, ``block``, ``encode``) whose products go
+through a ``Products`` object: the modules pass the one-device products,
+the dp x tp training step (``models/train.py``) its tensor-parallel ones,
+so both compute one function in one way.
+
 Training (``models/train.py``) builds the modules with
 ``param_dtype=torch.float32``: f32 parameters with gradients, cast to
 ``cfg.dtype`` inside ``forward`` on every call, as the reference keeps
@@ -119,6 +125,102 @@ def _param_dtype(cfg, param_dtype):
     return param_dtype, True
 
 
+class Products:
+    """How the weight products and the token gather run.  On one device
+    each is one ``torch.matmul`` of the input by the weight cast to the
+    activation dtype (and one ``F.embedding``); the dp x tp training step
+    (``models/train.py``) passes its own, which split them over a tensor
+    parallel group, so both run the arithmetic below."""
+
+    @staticmethod
+    def col(x, w, dtype):
+        """A product whose weight a tp group splits by column."""
+        return torch.matmul(x, w.to(dtype))
+
+    @staticmethod
+    def row(x, w, dtype):
+        """A product whose weight a tp group splits by row."""
+        return torch.matmul(x, w.to(dtype))
+
+    @staticmethod
+    def embed(ids, tok):
+        return F.embedding(ids, tok)
+
+
+DENSE = Products()
+
+
+def layer_norm(x, ln, dtype):
+    """The reference's LayerNorm over ``ln`` (``scale``, ``bias``,
+    ``eps``): f32 statistics by the fast variance, output in ``dtype``."""
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    mu2 = (x * x).mean(-1, keepdim=True)
+    var = torch.clamp(mu2 - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + ln.eps) * ln.scale
+    return ((x - mu) * mul + ln.bias).to(dtype)
+
+
+def attention(x, mask, rope, w, cfg, dtype, tril=None, mm: Products = DENSE):
+    """Self-attention with ``w.qkv`` / ``w.proj``; ``tril`` (a causal
+    mask) also hides later keys."""
+    B, L, _ = x.shape
+    hd = cfg.dim // cfg.n_heads
+    qkv = mm.col(x, w.qkv, dtype)
+    q, k, v = qkv.split(cfg.dim, dim=-1)
+    q = apply_rope(q.reshape(B, L, cfg.n_heads, hd), rope).to(dtype)
+    k = apply_rope(k.reshape(B, L, cfg.n_heads, hd), rope).to(dtype)
+    v = v.reshape(B, L, cfg.n_heads, hd)
+    # f32 outputs of bf16 products: the inputs are exact in f32
+    att = torch.matmul(q.float().transpose(1, 2),
+                       k.float().permute(0, 2, 3, 1)) / math.sqrt(hd)
+    keep = mask[:, None, None, :]
+    if tril is not None:
+        keep = keep & tril[:L, :L]
+    att = att.masked_fill(~keep, -1e30)
+    att = torch.softmax(att, dim=-1).to(dtype)
+    out = torch.matmul(att.float(), v.float().transpose(1, 2))
+    out = out.to(dtype).transpose(1, 2).reshape(B, L, cfg.dim)
+    return mm.row(out, w.proj, dtype)
+
+
+def geglu(x, w, dtype, mm: Products = DENSE):
+    """The GeGLU feed-forward with ``w.wi`` (gate | up) and ``w.wo``."""
+    gate, up = mm.col(x, w.wi, dtype).chunk(2, dim=-1)
+    act = F.gelu(gate.float(), approximate="tanh") * up.float()
+    return mm.row(act.to(dtype), w.wo, dtype)
+
+
+def block(x, mask, rope, w, cfg, dtype, tril=None, mm: Products = DENSE):
+    """One pre-LayerNorm block over ``w`` (``ln1``, ``attn``, ``ln2``,
+    ``mlp``)."""
+    x = x + attention(layer_norm(x, w.ln1, dtype), mask, rope, w.attn, cfg,
+                      dtype, tril, mm)
+    return x + geglu(layer_norm(x, w.ln2, dtype), w.mlp, dtype, mm)
+
+
+def encode(w, ids, mask, rope, cfg, dtype, mm: Products = DENSE,
+           recompute: bool = False):
+    """The bi-encoder over ``w`` (``tok``, ``blocks``, ``ln_f``): token ids
+    and mask [B, L] -> unit embeddings [B, dim] f32; ``recompute`` runs
+    each block under ``torch.utils.checkpoint``."""
+    x = mm.embed(ids, w.tok).to(dtype)  # gather, then cast
+    bool_mask = mask > 0
+    for blk in w.blocks:
+        if recompute:
+            x = checkpoint(block, x, bool_mask, rope, blk, cfg, dtype, None,
+                           mm, use_reentrant=False)
+        else:
+            x = block(x, bool_mask, rope, blk, cfg, dtype, None, mm)
+    x = layer_norm(x, w.ln_f, dtype)
+    # mean pooling over valid tokens, in f32
+    m = mask[..., None].float()
+    pooled = (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+    return pooled / torch.clamp(
+        torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12
+    )
+
+
 class LayerNorm(nn.Module):
     """The reference's LayerNorm: f32 statistics by the fast variance,
     eps 1e-6, f32 scale and bias, output in the activation dtype."""
@@ -131,12 +233,7 @@ class LayerNorm(nn.Module):
         self.bias = _weight((dim,), torch.float32, device, trainable)
 
     def forward(self, x):
-        x = x.float()
-        mu = x.mean(-1, keepdim=True)
-        mu2 = (x * x).mean(-1, keepdim=True)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((x - mu) * mul + self.bias).to(self.dtype)
+        return layer_norm(x, self, self.dtype)
 
 
 class Attention(nn.Module):
@@ -164,25 +261,8 @@ class Attention(nn.Module):
             )
 
     def forward(self, x, mask, rope):
-        c = self.cfg
-        B, L, _ = x.shape
-        hd = c.dim // c.n_heads
-        qkv = torch.matmul(x, self.qkv.to(self.dtype))
-        q, k, v = qkv.split(c.dim, dim=-1)
-        q = apply_rope(q.reshape(B, L, c.n_heads, hd), rope).to(self.dtype)
-        k = apply_rope(k.reshape(B, L, c.n_heads, hd), rope).to(self.dtype)
-        v = v.reshape(B, L, c.n_heads, hd)
-        # f32 outputs of bf16 products: the inputs are exact in f32
-        att = torch.matmul(q.float().transpose(1, 2),
-                           k.float().permute(0, 2, 3, 1)) / math.sqrt(hd)
-        keep = mask[:, None, None, :]
-        if self.causal:
-            keep = keep & self.tril[:L, :L]
-        att = att.masked_fill(~keep, -1e30)
-        att = torch.softmax(att, dim=-1).to(self.dtype)
-        out = torch.matmul(att.float(), v.float().transpose(1, 2))
-        out = out.to(self.dtype).transpose(1, 2).reshape(B, L, c.dim)
-        return torch.matmul(out, self.proj.to(self.dtype))
+        return attention(x, mask, rope, self, self.cfg, self.dtype,
+                         self.tril if self.causal else None)
 
 
 class GeGLU(nn.Module):
@@ -195,9 +275,7 @@ class GeGLU(nn.Module):
         self.wo = _weight((hidden, cfg.dim), wdt, device, train)
 
     def forward(self, x):
-        gate, up = torch.matmul(x, self.wi.to(self.dtype)).chunk(2, dim=-1)
-        act = F.gelu(gate.float(), approximate="tanh") * up.float()
-        return torch.matmul(act.to(self.dtype), self.wo.to(self.dtype))
+        return geglu(x, self, self.dtype)
 
 
 class Block(nn.Module):
@@ -209,14 +287,15 @@ class Block(nn.Module):
         super().__init__()
         dt = getattr(torch, cfg.dtype)
         train = param_dtype is not None
+        self.cfg, self.dtype = cfg, dt
         self.ln1 = LayerNorm(cfg.dim, dt, device, trainable=train)
         self.attn = Attention(cfg, device, causal, param_dtype)
         self.ln2 = LayerNorm(cfg.dim, dt, device, trainable=train)
         self.mlp = GeGLU(cfg, device, param_dtype)
 
     def forward(self, x, mask, rope):
-        x = x + self.attn(self.ln1(x), mask, rope)
-        return x + self.mlp(self.ln2(x))
+        return block(x, mask, rope, self, self.cfg, self.dtype,
+                     self.attn.tril if self.attn.causal else None)
 
 
 class BiEncoder(nn.Module):
@@ -238,26 +317,19 @@ class BiEncoder(nn.Module):
             for _ in range(cfg.n_layers)
         )
         self.ln_f = LayerNorm(cfg.dim, dt, device, trainable=train)
-        rope = _rope_angles(cfg.dim // cfg.n_heads, cfg.max_len, cfg.rope_base)
         self.register_buffer(
-            "rope", torch.tensor(rope, dtype=torch.float32, device=device),
-            persistent=False,
+            "rope", rope_table(cfg, device), persistent=False,
         )
 
     def forward(self, ids, mask):
-        x = F.embedding(ids, self.tok).to(self.dtype)  # gather, then cast
-        bool_mask = mask > 0
-        recompute = self.recompute and torch.is_grad_enabled()
-        for blk in self.blocks:
-            x = (checkpoint(blk, x, bool_mask, self.rope, use_reentrant=False)
-                 if recompute else blk(x, bool_mask, self.rope))
-        x = self.ln_f(x)
-        # mean pooling over valid tokens, in f32
-        m = mask[..., None].float()
-        pooled = (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
-        return pooled / torch.clamp(
-            torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12
-        )
+        return encode(self, ids, mask, self.rope, self.cfg, self.dtype,
+                      recompute=self.recompute and torch.is_grad_enabled())
+
+
+def rope_table(cfg, device) -> torch.Tensor:
+    """The f32 RoPE angles [max_len, head_dim / 2, 2] of ``cfg``."""
+    rope = _rope_angles(cfg.dim // cfg.n_heads, cfg.max_len, cfg.rope_base)
+    return torch.tensor(rope, dtype=torch.float32, device=device)
 
 
 # ---- parameters in the reference's tree form --------------------------------

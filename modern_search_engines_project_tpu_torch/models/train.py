@@ -23,14 +23,36 @@ The arithmetic follows the reference's:
     ``torch.optim.AdamW`` computes the same update up to f32 rounding.
 One host read of the loss a step, as the reference's loop does.  The
 products are ``torch.matmul`` (the reference's are XLA einsums); this
-module holds no hand-written kernel.  The reference's dp x tp mesh step
-is not ported: ``Trainer(mesh=...)`` raises (ROADMAP section 1, item 7).
+module holds no hand-written kernel.
+
+The dp x tp step (``Trainer(mesh=Mesh(devices, ("dp", "tp")))``) computes
+the one-device function, as the reference's GSPMD step does, with the
+reference's layout (``param_spec``): 1-D leaves replicated, the token
+table split on its feature axis, ``qkv`` and ``wi`` by column, ``proj``
+and ``wo`` by row, everything else replicated.  ``ShardedBiEncoder``
+keeps one f32 master a tp shard, on that shard's device in dp row 0,
+and hands each dp replica a differentiable copy (``Tensor.to``), so
+autograd sums the replicas' gradients into the masters and AdamW steps
+them; within one process this needs no hand-written collective.  Each dp
+replica runs ``models/encoder.encode`` on its slice of the batch with
+``TensorParallel`` products: a column product multiplies the input by
+each shard on its device and concatenates the outputs (whatever the
+columns mean: q | k | v, gate | up), a row product multiplies each
+input slice by its rows and adds the partial sums in f32 (the only
+change of summation order).  The replicated arithmetic (LayerNorm,
+RoPE, attention, GeGLU) runs on the replica's first tp device.  The
+loss takes the embeddings of the whole batch on the mesh's first
+device, so InfoNCE's in-batch negatives and duplicate masks span every
+dp slice.  A device may repeat in the mesh
+(``Mesh(np.array([cuda:0] * 4).reshape(2, 2), ("dp", "tp"))`` runs the
+step on one card).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import types
 import sys
 import time
 import zlib
@@ -38,14 +60,18 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from modern_search_engines_project_tpu_torch.models.encoder import (
     BiEncoder,
     EncoderConfig,
+    Products,
     TorchEncoder,
+    encode,
     init_reference_params,
     params_from_reference,
     params_to_reference,
+    rope_table,
 )
 from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     resolve_device,
@@ -225,11 +251,162 @@ def mine_hn_triples(
     return out
 
 
+# ---- the dp x tp step -------------------------------------------------------
+
+
+def reference_path(name: str) -> str:
+    """A ``BiEncoder`` state-dict name -> the reference's leaf path, e.g.
+    ``blocks.3.attn.qkv`` -> ``block3/attn/qkv/kernel``, ``tok`` ->
+    ``tok/embedding``."""
+    if name == "tok":
+        return "tok/embedding"
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        parts = [f"block{parts[1]}"] + parts[2:]
+        if parts[-1] in ("qkv", "proj", "wi", "wo"):
+            parts.append("kernel")
+    return "/".join(parts)
+
+
+def param_spec(path: str, x) -> Optional[int]:
+    """The axis over which the tp axis splits a leaf (None: replicated),
+    by the reference's ``Trainer._param_spec`` on its leaf ``path``
+    (``reference_path``): leaves under 2-D replicated, the token table on
+    its feature axis (1), ``qkv`` and ``wi`` by column (1), ``proj`` and
+    ``wo`` by row (0), everything else replicated."""
+    if x.ndim < 2:
+        return None
+    if "tok" in path and "embedding" in path:
+        return 1
+    if "qkv" in path or "wi" in path:
+        return 1
+    if "proj" in path or "wo" in path:
+        return 0
+    return None
+
+
+class TensorParallel(Products):
+    """The products of one dp replica over its tp devices ``devs``, the
+    activations on ``devs[0]``.  Weights are lists of tp shards, one on
+    each device."""
+
+    def __init__(self, devs):
+        self.devs = list(devs)
+        self.lead = self.devs[0]
+
+    def col(self, x, ws, dtype):
+        outs = [torch.matmul(x.to(d), w.to(dtype))
+                for d, w in zip(self.devs, ws)]
+        return torch.cat([o.to(self.lead) for o in outs], dim=-1)
+
+    def row(self, x, ws, dtype):
+        n, acc = ws[0].shape[0], None
+        for j, (d, w) in enumerate(zip(self.devs, ws)):
+            part = torch.matmul(x[..., j * n:(j + 1) * n].to(d), w.to(dtype))
+            part = part.to(self.lead, torch.float32)
+            acc = part if acc is None else acc + part
+        return acc.to(dtype)
+
+    def embed(self, ids, toks):
+        return torch.cat([F.embedding(ids.to(d), t).to(self.lead)
+                          for d, t in zip(self.devs, toks)], dim=-1)
+
+
+class ShardedBiEncoder:
+    """A trainable ``BiEncoder`` over a ("dp", "tp") mesh: f32 master
+    shards laid out by ``param_spec`` (``shards[name][j]`` on
+    ``mesh.devices[0, j]``; a replicated leaf has one master, on
+    ``mesh.devices[0, 0]``).  Called on per-replica slices of ids and
+    mask, it returns the whole batch's embeddings on
+    ``mesh.devices[0, 0]``."""
+
+    def __init__(self, cfg: EncoderConfig, mesh, state: dict):
+        self.cfg, self.mesh = cfg, mesh
+        self.dtype = getattr(torch, cfg.dtype)
+        self.devs = mesh.devices
+        self.dp, self.tp = self.devs.shape
+        self.device = self.devs[0, 0]
+        self.axis, self.shards = {}, {}
+        for name, full in state.items():
+            ax = param_spec(reference_path(name), full)
+            if ax is not None and full.shape[ax] % self.tp:
+                raise ValueError(
+                    f"{reference_path(name)} of shape {tuple(full.shape)}: "
+                    f"axis {ax} does not split over tp = {self.tp}")
+            parts = ([full] if ax is None
+                     else list(full.chunk(self.tp, dim=ax)))
+            self.axis[name] = ax
+            self.shards[name] = [
+                p.detach().to(self.devs[0, j], torch.float32, copy=True)
+                .contiguous().requires_grad_(True)
+                for j, p in enumerate(parts)]
+        self.ropes = [rope_table(cfg, self.devs[i, 0]) for i in range(self.dp)]
+        self.products = [TensorParallel(self.devs[i]) for i in range(self.dp)]
+
+    def parameters(self) -> list:
+        return [p for ps in self.shards.values() for p in ps]
+
+    def layout(self) -> dict:
+        """{reference path: (split axis or None, [(device, shape) of each
+        master shard])}."""
+        return {reference_path(n): (self.axis[n],
+                                    [(p.device, tuple(p.shape)) for p in ps])
+                for n, ps in self.shards.items()}
+
+    def gathered(self, grads: bool = False) -> dict:
+        """The full tensors (or their gradients) under ``BiEncoder``'s
+        state-dict names, on the mesh's first device."""
+        out = {}
+        for n, ps in self.shards.items():
+            ts = [(p.grad if grads else p.detach()).to(self.device) for p in ps]
+            out[n] = ts[0] if self.axis[n] is None else torch.cat(
+                ts, dim=self.axis[n])
+        return out
+
+    def _replica(self, i: int):
+        """Replica ``i``'s weights: differentiable copies of the masters
+        on its devices, in the attribute tree ``encoder.encode`` reads."""
+        devs = self.devs[i]
+
+        def leaf(name):
+            ps = self.shards[name]
+            if self.axis[name] is None:
+                return ps[0].to(devs[0])
+            return [p.to(devs[j]) for j, p in enumerate(ps)]
+
+        def ln(prefix):
+            return types.SimpleNamespace(scale=leaf(prefix + ".scale"),
+                                         bias=leaf(prefix + ".bias"),
+                                         eps=1e-6)
+
+        blocks = []
+        for k in range(self.cfg.n_layers):
+            p = f"blocks.{k}."
+            blocks.append(types.SimpleNamespace(
+                ln1=ln(p + "ln1"), ln2=ln(p + "ln2"),
+                attn=types.SimpleNamespace(qkv=leaf(p + "attn.qkv"),
+                                           proj=leaf(p + "attn.proj")),
+                mlp=types.SimpleNamespace(wi=leaf(p + "mlp.wi"),
+                                          wo=leaf(p + "mlp.wo"))))
+        return types.SimpleNamespace(tok=leaf("tok"), blocks=blocks,
+                                     ln_f=ln("ln_f"))
+
+    def __call__(self, ids: list, mask: list) -> torch.Tensor:
+        outs = []
+        for i in range(self.dp):
+            e = encode(self._replica(i), ids[i], mask[i], self.ropes[i],
+                       self.cfg, self.dtype, self.products[i],
+                       recompute=torch.is_grad_enabled())
+            outs.append(e.to(self.device))
+        return torch.cat(outs)
+
+
 class Trainer:
     """The reference's ``Trainer`` on one device (``device``: "cuda" by
-    default, or "cpu"; with no card and no ``device="cpu"`` this raises).
-    ``mesh`` is not ported: the dp x tp step waits for the multi-GPU work
-    (ROADMAP section 1, item 7)."""
+    default, or "cpu"; with no card and no ``device="cpu"`` this raises),
+    or over ``mesh``, a ``parallel.sharding.Mesh`` on axes ("dp", "tp"):
+    the dp x tp step (the module docstring), its devices taking the place
+    of ``device``."""
 
     def __init__(
         self,
@@ -238,16 +415,18 @@ class Trainer:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the dp x tp training step is not ported "
-                "to the GPU yet (ROADMAP section 1, item 7)"
-            )
+        axes = tuple(getattr(mesh, "axis_names", ()))
+        if mesh is not None and axes != ("dp", "tp"):
+            raise ValueError(
+                f"Trainer(mesh=...) takes a parallel.sharding.Mesh on axes "
+                f"('dp', 'tp'), not {axes or type(mesh).__name__}")
         self.enc_cfg = enc_cfg or EncoderConfig()
         self.cfg = train_cfg or TrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices[0, 0] if mesh is not None
+                       else resolve_device(device))
         self.tokenizer = HashTokenizer(self.enc_cfg.vocab_size)
-        self.model: Optional[BiEncoder] = None
+        self.model = None  # a BiEncoder, or a ShardedBiEncoder on a mesh
         self.opt: Optional[torch.optim.AdamW] = None
         self.lr_at: Optional[Callable[[int], float]] = None
         self.step_count = 0
@@ -264,10 +443,13 @@ class Trainer:
             g = torch.Generator().manual_seed(self.cfg.seed)
             params = init_reference_params(
                 self.enc_cfg, lambda s: torch.randn(s, generator=g).numpy())
-        self.model = BiEncoder(self.enc_cfg, self.device,
-                               param_dtype=torch.float32)
-        self.model.load_state_dict(
-            params_from_reference(params, self.device, torch.float32))
+        state = params_from_reference(params, self.device, torch.float32)
+        if self.mesh is not None:
+            self.model = ShardedBiEncoder(self.enc_cfg, self.mesh, state)
+        else:
+            self.model = BiEncoder(self.enc_cfg, self.device,
+                                   param_dtype=torch.float32)
+            self.model.load_state_dict(state)
         self.lr_at = lr_schedule(self.cfg, total_steps)
         self.opt = torch.optim.AdamW(
             self.model.parameters(), lr=self.lr_at(0), betas=(0.9, 0.999),
@@ -280,7 +462,26 @@ class Trainer:
     def params(self) -> Optional[dict]:
         """A host copy of the parameters in the reference's tree form
         (``params_to_reference``), or None before ``init``."""
-        return None if self.model is None else params_to_reference(self.model)
+        if self.model is None:
+            return None
+        if self.mesh is not None:
+            return params_to_reference(self.model.gathered())
+        return params_to_reference(self.model)
+
+    def grads(self) -> dict:
+        """The parameters' gradients (after ``loss(...).backward()``) as a
+        host tree in the reference's form."""
+        if self.mesh is not None:
+            return params_to_reference(self.model.gathered(grads=True))
+        return params_to_reference(
+            {n: p.grad for n, p in self.model.named_parameters()})
+
+    def layout(self) -> dict:
+        """On a mesh: {reference leaf path: (tp split axis or None,
+        [(device, shape) of each master shard])}."""
+        if self.mesh is None:
+            raise ValueError("layout() describes a mesh's shards")
+        return self.model.layout()
 
     # -- train step ----------------------------------------------------------
 
@@ -292,10 +493,28 @@ class Trainer:
 
     def upload_batch(self, batch: dict) -> dict:
         """A host batch (``encode_pairs``) on the device; the crc32 hashes
-        widened to int64."""
-        return {k: upload(v.astype(np.int64) if k in _HASH_KEYS else v,
-                          self.device)
-                for k, v in batch.items()}
+        widened to int64.  On a mesh the token ids and masks are split over
+        dp, a list of one slice a replica on its first tp device, and the
+        loss's inputs (labels, hashes) stay whole on the mesh's first
+        device; a batch that dp does not divide is refused."""
+        if self.mesh is None:
+            return {k: upload(v.astype(np.int64) if k in _HASH_KEYS else v,
+                              self.device)
+                    for k, v in batch.items()}
+        dp = self.model.dp
+        B = len(batch["ids1"])
+        if B % dp:
+            raise ValueError(
+                f"a batch of {B} rows does not split over dp = {dp}")
+        b, out = B // dp, {}
+        for k, v in batch.items():
+            if k.startswith(("ids", "mask")):
+                out[k] = [upload(v[i * b:(i + 1) * b],
+                                 self.mesh.devices[i, 0]) for i in range(dp)]
+            else:
+                out[k] = upload(v.astype(np.int64) if k in _HASH_KEYS else v,
+                                self.device)
+        return out
 
     def step(self, batch: dict) -> torch.Tensor:
         """One optimizer step on a host batch; returns the loss (a device
@@ -422,7 +641,7 @@ class Trainer:
 
     def to_encoder(self, batch_size: int = 64) -> TorchEncoder:
         """The trained tower as an inference ``TorchEncoder`` on the same
-        device (weights in ``cfg.dtype``)."""
+        device, the mesh's first on a mesh (weights in ``cfg.dtype``)."""
         return TorchEncoder(
             self.enc_cfg,
             params=self.params,

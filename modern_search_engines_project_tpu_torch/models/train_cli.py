@@ -10,8 +10,10 @@ card and no ``--device cpu`` it exits with an error).  Without --pairs it
 trains on deterministic synthetic pairs (air-gapped default).  Hard
 negatives are mined with the untrained encoder, labels are binary, the
 loss is CosineSimilarityLoss, the optimizer AdamW with 10% linear warmup.
-``--dp`` / ``--tp`` above 1 exit non-zero: the dp x tp step is not ported
-(ROADMAP section 1, item 7).
+``--dp N [--tp M]`` trains on a (dp, tp) mesh over the first N * M visible
+cards (``models/train.py``'s dp x tp step), or N * M CPU entries with
+``--device cpu``; with fewer cards visible it exits non-zero, naming the
+count.
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ def main(argv=None):
     parser.add_argument("--synthetic", type=int, default=2048)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    if args.dp > 1 or args.tp > 1:
-        parser.error("--dp / --tp above 1: the dp x tp training step is not "
-                     "ported to the GPU yet (ROADMAP section 1, item 7)")
+    mesh = None
+    if args.dp:
+        mesh = _mesh(parser, args.dp, args.tp, args.device)
 
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("train")
@@ -65,7 +67,8 @@ def main(argv=None):
         resolve_device,
     )
 
-    device = resolve_device(args.device)
+    device = mesh.devices[0, 0] if mesh is not None else resolve_device(
+        args.device)
     pairs = (
         load_pairs_tsv(args.pairs, args.limit)
         if args.pairs
@@ -92,7 +95,10 @@ def main(argv=None):
         num_negatives=args.negatives,
         max_len=args.max_len,
     )
-    trainer = Trainer(enc_cfg, tcfg, device=device)
+    if mesh is not None:
+        log.info("mesh: dp=%d tp=%d on %s", args.dp, args.tp,
+                 ", ".join(str(d) for d in mesh.devices.reshape(-1)))
+    trainer = Trainer(enc_cfg, tcfg, mesh=mesh, device=device)
     t0 = time.time()
     losses = trainer.train(triples)
     log.info(
@@ -101,6 +107,27 @@ def main(argv=None):
     )
     save_encoder(trainer.params, enc_cfg, args.out)
     log.info("saved encoder to %s", args.out)
+
+
+def _mesh(parser, dp: int, tp: int, device: str):
+    """The (dp, tp) mesh over the first dp * tp visible cards (CPU entries
+    with ``device="cpu"``); exits through ``parser.error`` when fewer
+    cards are visible."""
+    import numpy as np
+    import torch
+
+    from modern_search_engines_project_tpu_torch.parallel.sharding import Mesh
+
+    n = dp * tp
+    if device == "cpu":
+        devs = [torch.device("cpu")] * n
+    else:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            parser.error(f"--dp {dp} --tp {tp} needs {n} visible CUDA "
+                         f"devices, {count} visible")
+        devs = [torch.device("cuda", i) for i in range(n)]
+    return Mesh(np.array(devs, dtype=object).reshape(dp, tp), ("dp", "tp"))
 
 
 if __name__ == "__main__":

@@ -75,14 +75,18 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     upload,
 )
 
-AXES = (("shard",), ("dp", "shard"), ("host", "shard"))
+SERVING_AXES = (("shard",), ("dp", "shard"), ("host", "shard"))
+TRAINING_AXES = (("dp", "tp"),)  # models/train.py's dp x tp step
+AXES = SERVING_AXES + TRAINING_AXES
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """Devices on named axes: ``("shard",)``, ``("dp", "shard")`` (the
     index replicated over dp, query batches split over it) or
-    ``("host", "shard")`` (a two-level merge).  ``devices`` is an object
+    ``("host", "shard")`` (a two-level merge) for serving; ``("dp",
+    "tp")`` for the training step (``models/train.Trainer``), which
+    serving refuses.  ``devices`` is an object
     array of ``torch.device``, one axis a name; a device may repeat.
     ``owner`` (same shape, ints) names the process that holds each device
     when the mesh spans several processes (``parallel.multihost``); None
@@ -159,7 +163,11 @@ def make_mesh_2d(dp: int, shard: int, device=None) -> Mesh:
 def _layout(mesh: Mesh):
     """(dp, S, n_host, rows): ``rows[r]`` lists (flat shard id, device) of
     the shards this process holds in dp row ``r``, in flat (host-major)
-    order."""
+    order.  Raises on a training mesh."""
+    if mesh.axis_names not in SERVING_AXES:
+        raise ValueError(
+            f"a serving mesh has axes {SERVING_AXES}, not {mesh.axis_names} "
+            "(a ('dp', 'tp') mesh is the training step's)")
     shape = mesh.shape
     devs = mesh.devices
     if "dp" in shape:

@@ -159,6 +159,51 @@ def dedup_query_terms(term_ids, qtf):
     return uids, w
 
 
+def dedup_query_terms_device(term_ids: torch.Tensor, qtf: torch.Tensor,
+                             u_pad: int):
+    """The device twin of ``dedup_query_terms`` under a fixed distinct-term
+    budget ``u_pad`` (the reference's ``dedup_query_terms_device``):
+    static shapes and no host sync, so a batch goes from its term ids to
+    the U-dedup kernels without a round trip.
+
+    ``term_ids`` [B, T] (ids below 0 are padding), ``qtf`` [B, T] f32 on
+    one device.  Returns (uids [u_pad] int32: the ``u_pad`` smallest
+    distinct ids ascending, then pad -2; w [2B, u_pad] f32: rows [0, B)
+    each query's qtf summed per distinct id, rows [B, 2B) presence 0/1).
+    A term whose id falls outside the ``u_pad`` kept, and every pad, goes
+    to a discarded column, so distinct ids beyond ``u_pad`` are dropped
+    silently: callers size ``u_pad`` from the host's distinct count, as
+    the reference's callers do.
+
+    Plain torch, as the reference's is XLA outside any Pallas kernel: a
+    sort, a first-occurrence mask, a cumulative sum for the rank, a
+    scatter into ``u_pad + 1`` slots and ``torch.searchsorted``."""
+    B, T = term_ids.shape
+    dev = term_ids.device
+    tids = term_ids.to(torch.int64)
+    sent = torch.iinfo(torch.int32).max
+    flat = torch.where(tids < 0, sent, tids).reshape(-1)
+    srt = torch.sort(flat).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    first &= srt != sent
+    rank = torch.cumsum(first, 0) - 1
+    slot = torch.where(first & (rank < u_pad), rank, u_pad)
+    uniq = torch.full((u_pad + 1,), sent, dtype=torch.int64, device=dev)
+    uniq = uniq.scatter(0, slot, srt)[:u_pad]  # slot u_pad: discarded
+    uids = torch.where(uniq == sent, -2, uniq).to(torch.int32)
+    valid = tids >= 0
+    pos = torch.searchsorted(uniq, tids.clamp(min=0))
+    cols = torch.where(valid, pos, u_pad)
+    rows = torch.arange(B, device=dev)[:, None]
+    w = torch.zeros(2 * B * (u_pad + 1), dtype=torch.float32, device=dev)
+    w.scatter_add_(0, (rows * (u_pad + 1) + cols).reshape(-1),
+                   torch.where(valid, qtf.float(), 0.0).reshape(-1))
+    w.scatter_reduce_(0, ((B + rows) * (u_pad + 1) + cols).reshape(-1),
+                      valid.float().reshape(-1), "amax")
+    return uids, w.reshape(2 * B, u_pad + 1)[:, :u_pad].contiguous()
+
+
 # ---- plain versions (the CPU path; the card's yardstick) -------------------
 
 

@@ -1492,3 +1492,66 @@ def test_scatter_stage1_matches_slot_kernels(sharded_card, cuda, B):
     got = scatter.search_batch(qs, top_k=10)
     assert {k.name: k.launches for k in cuda_lib.KERNELS} == before
     _same_results(got, one.search_batch(qs, top_k=10))
+
+
+@pytest.mark.parametrize("loss", ["cosine", "infonce", "infonce_hn"])
+def test_dp_tp_step_on_card_matches_one_card(cuda, loss):
+    """The dp 2 x tp 2 step on one card (the card repeated in the mesh)
+    against the one-card step in f32: the loss to 1e-5, every gradient
+    leaf to 1e-4 of its largest magnitude (the row products' partial sums
+    are the only change of order)."""
+    from modern_search_engines_project_tpu_torch.models import (
+        TrainConfig,
+        Trainer,
+    )
+    from modern_search_engines_project_tpu_torch.parallel.sharding import Mesh
+
+    cfg = EncoderConfig(vocab_size=8192, dim=128, n_layers=2, n_heads=4,
+                        max_len=64, dtype="float32")
+    rng = np.random.default_rng(2)
+    tree = init_reference_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+    tcfg = TrainConfig(loss=loss, max_len=48, learning_rate=1e-3)
+    mesh = Mesh(np.array([cuda] * 4, dtype=object).reshape(2, 2),
+                ("dp", "tp"))
+    one = Trainer(cfg, tcfg).init(10, params=tree)
+    tp = Trainer(cfg, tcfg, mesh=mesh).init(10, params=tree)
+    batch = one.encode_pairs(_train_triples(loss, 2))
+    losses = []
+    for tr in (one, tp):
+        loss_t = tr.loss(tr.upload_batch(batch))
+        loss_t.backward()
+        losses.append(float(loss_t.detach()))
+    assert abs(losses[0] - losses[1]) <= 1e-5, losses
+    ga, gb = _flat(tp.grads()), _flat(one.grads())
+    for k in gb:
+        assert np.abs(ga[k] - gb[k]).max() <= 1e-4 * np.abs(gb[k]).max(), k
+    assert all(p.device.type == "cuda" for p in tp.model.parameters())
+
+
+@pytest.mark.parametrize("B,n_terms", [(16, 400), (64, 3000), (17, 3000)])
+def test_device_dedup_on_card_is_sync_free_and_equal(cuda, B, n_terms):
+    """``dedup_query_terms_device`` on the card: no host sync, equal to the
+    host dedup bit for bit, and a budget below the distinct count drops
+    ids exactly as on the CPU."""
+    from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
+        dedup_query_terms_device,
+    )
+
+    rng = np.random.default_rng(B)
+    t = rng.integers(0, n_terms, (B, 12)).astype(np.int32)
+    t[rng.random(t.shape) < 0.2] = -1
+    q = np.where(t >= 0, rng.integers(1, 4, t.shape), 0).astype(np.float32)
+    uids_h, w_h = dedup_query_terms(t, q)
+    td, qd = torch.as_tensor(t, device=cuda), torch.as_tensor(q, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        uids, w = dedup_query_terms_device(td, qd, uids_h.size)
+        cut = dedup_query_terms_device(td, qd, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(uids.cpu().numpy(), uids_h)
+    assert np.array_equal(w.cpu().numpy(), w_h)
+    want = dedup_query_terms_device(td.cpu(), qd.cpu(), 16)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(cut, want))

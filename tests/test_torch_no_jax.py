@@ -27,6 +27,11 @@ FORBIDDEN = re.compile(
 # do without; the card's machine has no aiohttp)
 FORBIDDEN_IMPORTS = re.compile(
     r"^\s*(import|from)\s+(msgpack|optax|httpx|aiohttp)\b")
+# the one place httpx may be named: the crawler keeps the reference's
+# ``HttpxTransport`` for callers who pass one, importing httpx only when
+# one is built (its default transport is asyncio's; the crawler runs with
+# httpx blocked below)
+HTTPX_ALLOWED = (PORT / "crawler" / "fetch.py", "        import httpx")
 
 
 def test_port_searches_with_jax_blocked():
@@ -112,9 +117,108 @@ def test_source_names_neither_jax_nor_reference_package(path):
     hits = [
         f"{i}: {line}"
         for i, line in enumerate(path.read_text().splitlines(), 1)
-        if FORBIDDEN.search(line) or FORBIDDEN_IMPORTS.search(line)
+        if FORBIDDEN.search(line) or (FORBIDDEN_IMPORTS.search(line)
+                                      and (path, line) != HTTPX_ALLOWED)
     ]
     assert not hits, hits
+
+
+def test_httpx_is_imported_only_inside_httpx_transport():
+    """The exemption above holds one line, inside ``HttpxTransport``."""
+    lines = HTTPX_ALLOWED[0].read_text().splitlines()
+    at = [i for i, line in enumerate(lines) if "httpx" in line
+          and FORBIDDEN_IMPORTS.search(line)]
+    assert [lines[i] for i in at] == [HTTPX_ALLOWED[1]]
+    owner = next(lines[j] for j in range(at[0], -1, -1)
+                 if lines[j].startswith("class "))
+    assert owner.startswith("class HttpxTransport")
+
+
+def test_scan_covers_the_last_modules():
+    names = ["entry.py", "eval/load_test.py", "eval/corpus.py"] + [
+        f"crawler/{m}.py" for m in (
+            "__init__", "__main__", "fetch", "frontier", "helpers",
+            "html_parser", "main", "metric", "preprocess", "robots",
+            "status_policy", "storage", "utema")]
+    for name in names:
+        assert PORT / name in SOURCES, name
+
+
+def test_last_modules_run_with_jax_httpx_lxml_aiohttp_blocked(tmp_path):
+    """The crawler, ``entry.py``, the load test and the dp x tp trainer
+    import and run on the CPU with none of jax, flax, httpx, lxml and
+    aiohttp importable: a crawl of an in-memory site (the stdlib parser)
+    and a merge, a dp x tp step on a CPU mesh, ``entry`` at a small
+    width, the device dedup, and the load test's service."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for m in ("jax", "flax", "httpx", "lxml", "aiohttp", "msgpack",
+                  "optax"):
+            sys.modules[m] = None  # any import of these now fails
+        import asyncio
+        import numpy as np
+        import torch
+        from modern_search_engines_project_tpu_torch import crawler, entry
+        from modern_search_engines_project_tpu_torch.crawler import (
+            __main__ as crawl_cli, fetch, frontier, helpers, html_parser,
+            main, metric, preprocess, robots, status_policy, storage, utema)
+        from modern_search_engines_project_tpu_torch.eval import (
+            corpus, load_test)
+        from modern_search_engines_project_tpu_torch.models import (
+            EncoderConfig, TrainConfig, Trainer)
+        from modern_search_engines_project_tpu_torch.parallel.sharding import (
+            Mesh)
+        from modern_search_engines_project_tpu_torch.retrieval.bm25_slots import (
+            dedup_query_terms_device)
+
+        class Site:
+            async def get(self, url):
+                if url.endswith("/robots.txt"):
+                    return 200, {{}}, "User-agent: *\\nCrawl-delay: 0\\n"
+                body = ("<html><head><title>T</title></head><body><main>"
+                        "Tuebingen university on the Neckar. "
+                        "<a href='https://u.de/b'>b</a></main></body></html>")
+                return 200, {{"content-type": "text/html"}}, body
+
+        store = crawler.CrawlStore({str(tmp_path / "c.sqlite")!r})
+        c = crawler.Crawler(store, crawler.Fetcher(Site()), max_pages=3,
+                            content_filter=False, expand_threshold=-1.0)
+        asyncio.run(c.run(["https://u.de/a"]))
+        assert store.n_documents() == 2
+        merged = crawler.CrawlStore({str(tmp_path / "m.sqlite")!r})
+        assert preprocess.merge_crawls(merged, store).merged == 2
+        assert isinstance(crawler.Fetcher()._ensure_transport(),
+                          crawler.AsyncioTransport)
+        cpu = torch.device("cpu")
+        mesh = Mesh(np.array([cpu] * 4, dtype=object).reshape(2, 2),
+                    ("dp", "tp"))
+        cfg = EncoderConfig(vocab_size=256, dim=32, n_layers=1, n_heads=2,
+                            max_len=16)
+        tr = Trainer(cfg, TrainConfig(batch_size=4, max_len=16), mesh=mesh)
+        losses = tr.train([("a b", "c d e", 1.0), ("f", "g h", 0.0)] * 2)
+        assert np.isfinite(losses).all()
+        fwd, args = entry.entry(device="cpu", cfg=cfg)
+        assert fwd(*args).shape == (8, 32)
+        u, w = dedup_query_terms_device(torch.tensor([[3, 1, -1]]),
+                                        torch.ones(1, 3), 4)
+        assert u.tolist() == [1, 3, -2, -2]
+        svc, vocab = load_test.build_service(30, summarize=False,
+                                             device="cpu")
+        assert svc.engine.art.n_docs == 30 and len(vocab) == 400
+        assert isinstance(svc.engine.search(vocab[200]), list)
+        loaded = [m for m in sys.modules if m == "modern_search_engines_project_tpu"
+                  or m.startswith("modern_search_engines_project_tpu.")]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_stage3_and_assistant_run_with_jax_flax_msgpack_httpx_blocked():

@@ -445,12 +445,15 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(enc.encode_batch(["castle neckar"])).all()
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
-def test_train_cli_refuses_a_mesh(flags, capsys):
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--dp", "2", "--tp", "2"]])
+def test_train_cli_refuses_a_mesh(flags, capsys, monkeypatch):
+    """A (dp, tp) mesh of more cards than are visible is refused, naming
+    the count (the dp x tp step itself: tests/test_torch_train_sharded.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
-        train_cli.main(["--device", "cpu", *flags])
+        train_cli.main(flags)
     assert e.value.code != 0
-    assert "item 7" in capsys.readouterr().err
+    assert "0 visible" in capsys.readouterr().err
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -464,6 +467,6 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
         train_cross_encoder([("a", "b", 1.0)], cfg, batch_size=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--layers", "1", "--dim", "64", "--synthetic", "8"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="'dp', 'tp'"):
         port.Trainer(cfg, mesh=object(), device="cpu")
     assert port.Trainer(cfg, device="cpu").device.type == "cpu"
