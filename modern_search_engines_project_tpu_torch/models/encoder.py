@@ -77,6 +77,7 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     upload,
 )
 from modern_search_engines_project_tpu_torch.text.hash_tokenizer import HashTokenizer
+from modern_search_engines_project_tpu_torch.utils.timing import inner_timer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -549,12 +550,18 @@ class TorchEncoder:
 
     def encode_batch_device(self, texts: Sequence[str]) -> torch.Tensor:
         """Embeddings [n, dim] f32 as a tensor on the device, with no host
-        sync: the engine feeds it straight into the ranking dispatch."""
+        sync: the engine feeds it straight into the ranking dispatch.
+        Inside a caller's span (the engine's ``query_encode``), each chunk
+        is two child spans in the caller's registry: ``encode_tokens``
+        (tokenize, pad, the pinned upload) and ``encode_forward`` (the
+        host's enqueue of the forward)."""
         chunks = []
         with torch.no_grad():
             for i in range(0, len(texts), self.batch_size):
-                x = self._upload(texts[i : i + self.batch_size])
-                chunks.append(self.model(x[0], x[1]))
+                with inner_timer("encode_tokens"):
+                    x = self._upload(texts[i : i + self.batch_size])
+                with inner_timer("encode_forward"):
+                    chunks.append(self.model(x[0], x[1]))
         if not chunks:
             return torch.zeros(0, self.cfg.dim, device=self.device)
         return chunks[0] if len(chunks) == 1 else torch.cat(chunks)

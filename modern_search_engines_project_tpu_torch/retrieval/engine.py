@@ -299,35 +299,37 @@ class SearchEngine:
         Batches larger than ``cfg.query_batch_size`` are chunked; every
         chunk is enqueued before the first is copied back.  A
         ``query_batch_size`` of None or 0 means chunks of 64, as in the
-        reference."""
+        reference.  A batch is one span of each stage, whatever its
+        chunks: ``query_prep``, ``query_encode`` and ``device_rank``, the
+        last split into ``rank_enqueue`` and ``rank_wait`` (the copies
+        back, which wait for the device)."""
         cap = max(1, int(self.cfg.query_batch_size or 64))
-        if len(queries) > cap:
-            pending = []
-            for i in range(0, len(queries), cap):
-                chunk = list(queries[i : i + cap])
-                padded = chunk + [""] * (self._bucket(len(chunk)) - len(chunk))
-                term_ids, qtf, processed = self.prepare_queries(
-                    padded, augment
-                )
-                qvec = self.encode_queries(processed)
-                pending.append(
-                    (len(chunk), self._device_rank(term_ids, qtf, qvec))
-                )
-            parts = [
-                tuple(x[:n] for x in self._to_host(outs))
-                for n, outs in pending
-            ]
-            return tuple(
-                np.concatenate(cols, axis=0) for cols in zip(*parts)
-            )
-        n_real = len(queries)
-        padded = list(queries) + [""] * (self._bucket(n_real) - n_real)
+        chunks = [list(queries[i : i + cap])
+                  for i in range(0, len(queries), cap)] or [[]]
+        self.times.begin_batch()
         with stage_timer("query_prep", self.times):
-            term_ids, qtf, processed = self.prepare_queries(padded, augment)
+            prepped = [
+                self.prepare_queries(
+                    c + [""] * (self._bucket(len(c)) - len(c)), augment
+                )
+                for c in chunks
+            ]
         with stage_timer("query_encode", self.times):
-            qvec = self.encode_queries(processed)
+            qvecs = [self.encode_queries(p[2]) for p in prepped]
         with stage_timer("device_rank", self.times):
-            return self._to_host(self._device_rank(term_ids, qtf, qvec))
+            with stage_timer("rank_enqueue", self.times):
+                pending = [self._device_rank(t, f, q)
+                           for (t, f, _), q in zip(prepped, qvecs)]
+            with stage_timer("rank_wait", self.times):
+                parts = [self._to_host(outs) for outs in pending]
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(
+            np.concatenate(cols, axis=0)
+            for cols in zip(*(
+                tuple(x[: len(c)] for x in p) for c, p in zip(chunks, parts)
+            ))
+        )
 
     def search_batch(
         self,

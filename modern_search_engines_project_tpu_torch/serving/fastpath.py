@@ -95,7 +95,9 @@ def attach_engine(server: FastHttpServer, engine, fragments=None) -> None:
     before) + a batch rank callback.  The callback runs on a C++
     dispatcher thread, whose current CUDA device is whatever that thread
     last set, so it selects the engine's device (``engine.device``) for
-    every batch."""
+    every batch.  The engine's ``times``, as it is at each batch, gets the
+    callback's copy-out span (``plane_copy_out``) and reports the plane's
+    request timing (``FastHttpServer.stage_counters``)."""
     server.load_fragments(
         build_fragments(engine.art) if fragments is None else fragments
     )
@@ -110,7 +112,7 @@ def attach_engine(server: FastHttpServer, engine, fragments=None) -> None:
         with on_device():
             return engine.search_batch_indices(queries, top_k=top_k)
 
-    server.set_rank_fn(rank)
+    server.set_rank_fn(rank, times=lambda: engine.times)
 
 
 def attach_stub(

@@ -620,3 +620,88 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     monkeypatch.setattr(native_http, "BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native_http.build()
+
+
+def test_stub_plane_times_each_request():
+    """Every request taken into a batch is counted with its queue wait,
+    which holds the batch window it was given; host time and the
+    histogram's percentiles cover every reply."""
+    window_us = 20_000
+    srv = FastHttpServer(free_port(), n_threads=1, batch_window_us=window_us)
+    srv.load_fragments([b'"url": "u0", "doc_id": "0"'])
+    srv.set_stub([0], [1.0])
+    srv.start()
+    try:
+        c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=10)
+        for i in range(6):  # one at a time: each waits out the window
+            assert post(srv.port, "/api/search", {"query": f"q{i}"},
+                        conn=c)[0] == 200
+        c.close()
+        st = srv.stats()
+    finally:
+        srv.stop()
+    assert st["queued"] == st["served"] == st["batched_queries"] == 6
+    assert st["queue_wait_us"] >= 6 * window_us
+    assert st["host_us"] >= st["queue_wait_us"]
+    assert 0 < st["host_p50_ms"] <= st["host_p95_ms"] <= st["host_p99_ms"]
+    assert st["host_p50_ms"] >= window_us / 1e3 * 0.95  # bucket precision
+    assert srv.stats() == {}  # stopped
+
+
+def test_engine_plane_records_copy_out_and_request_timing():
+    """attach_engine hands the plane the engine's StageTimes: the
+    callback's copy-out is one span a batch, and the plane's request
+    timing reads as counters beside the engine's stages."""
+    from modern_search_engines_project_tpu_torch.serving.fastpath import (
+        attach_engine,
+        make_server,
+    )
+
+    engine = TestEngineFastpath._engine(40, seed=5)
+    srv = make_server(free_port(), default_top_k=10)
+    attach_engine(srv, engine)
+    srv.start()
+    try:
+        for q in ("research law", "neckar river", "law"):
+            assert post(srv.port, "/api/search", {"query": q})[0] == 200
+        st = srv.stats()
+        r = engine.times.report()
+    finally:
+        srv.stop()
+    assert r["plane_copy_out"]["count"] == st["batches"] == 3
+    assert r["finish_indices"]["count"] == 3
+    assert r["plane_queue_wait"]["count"] == st["queued"] == 3
+    assert r["plane_queue_wait"]["total_s"] == pytest.approx(
+        st["queue_wait_us"] / 1e6, abs=1e-4)
+    assert r["plane_host"]["count"] == st["served"] == 3
+    assert r["plane_host"]["mean_ms"] >= r["plane_copy_out"]["mean_ms"]
+    assert "plane_queue_wait" not in engine.times.report()  # stopped
+
+
+def test_engine_plane_follows_a_replaced_registry():
+    """The copy-out span and the plane's counters go to the registry the
+    engine holds at each batch, not to the one it held at attach time."""
+    from modern_search_engines_project_tpu_torch.serving.fastpath import (
+        attach_engine,
+        make_server,
+    )
+    from modern_search_engines_project_tpu_torch.utils.timing import (
+        StageTimes,
+    )
+
+    engine = TestEngineFastpath._engine(40, seed=5)
+    srv = make_server(free_port(), default_top_k=10)
+    attach_engine(srv, engine)
+    srv.start()
+    try:
+        assert post(srv.port, "/api/search", {"query": "law"})[0] == 200
+        old = engine.times
+        engine.times = StageTimes()
+        for q in ("research law", "neckar river"):
+            assert post(srv.port, "/api/search", {"query": q})[0] == 200
+        r, r_old = engine.times.report(), old.report()
+    finally:
+        srv.stop()
+    assert r_old["plane_copy_out"]["count"] == 1
+    assert r["plane_copy_out"]["count"] == r["device_rank"]["count"] == 2
+    assert r["plane_queue_wait"]["count"] == 3  # the plane's, since start
