@@ -57,6 +57,29 @@ cross from the reference's tree form through ``params_from_reference``,
 and ``params_digest`` hashes that tree exactly as the reference's
 ``JaxEncoder.params_digest`` does, so indexes built by either package
 carry the same provenance.
+
+On a card, ``encode_batch_device`` replays the inference forward of a
+short chunk from a CUDA graph (``replays_graph``: at most ``batch_size``
+rows of at most ``GRAPH_MAX_LEN`` tokens, no gradients), one graph a
+(rows, length) shape: a 12L/768d forward is ~900 PyTorch calls, and the
+data plane's two dispatcher threads in one process hand the interpreter
+lock back and forth at each of them, so its host enqueue takes several
+times its device time; one replay is a few calls.  The graph holds the
+eager forward's kernels on the same shapes and dtypes, so it gives the
+same bits.  A shape's first call runs eagerly (it warms cuBLAS and the
+allocator), its second captures, on a side stream in the thread-local
+capture mode, so the other thread's launches neither fail nor join the
+graph.  Longer inputs (document windows, 256-512 tokens) stay eager: a
+graph's private memory would hold their f32 attention scores, and their
+launches are a small share of their device time.  The CPU path is the
+eager one.  Two threads may encode at once: one lock per encoder covers
+the copy into the graph's static input, the replay and the clone of its
+static output, all three on the caller's current stream (a replay on
+another stream than the last one's first waits for that one), so stream
+order keeps a later replay from overwriting an earlier chunk's input or
+output before that chunk's clone has run.  That order also lets all of an
+encoder's graphs share one memory pool: no two replays run at once, and
+each graph's output stays its own, live until the encoder goes.
 """
 
 from __future__ import annotations
@@ -64,6 +87,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -77,7 +102,10 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     upload,
 )
 from modern_search_engines_project_tpu_torch.text.hash_tokenizer import HashTokenizer
-from modern_search_engines_project_tpu_torch.utils.timing import inner_timer
+from modern_search_engines_project_tpu_torch.utils.timing import (
+    inner_record,
+    inner_timer,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,6 +480,83 @@ def params_to_reference(module) -> dict:
     return tree
 
 
+# ---- the inference forward from CUDA graphs ---------------------------------
+
+GRAPH_MAX_LEN = 64  # the longest token bucket that replays a graph
+
+
+def replays_graph(device: torch.device, n: int, L: int, grad: bool,
+                  batch_size: int) -> bool:
+    """Whether ``encode_batch_device`` replays a chunk of ``n`` rows padded
+    to ``L`` tokens from a CUDA graph: on a card, without gradients, for
+    at most ``batch_size`` rows of at most ``GRAPH_MAX_LEN`` tokens."""
+    return (device.type == "cuda" and not grad
+            and 0 < n <= batch_size and L <= GRAPH_MAX_LEN)
+
+
+class GraphedForward:
+    """The inference forward of ``model`` on ``device``, one CUDA graph a
+    shape of its [2, n, L] int32 input (ids, mask); the module docstring
+    says when and why it is safe.  ``__call__`` runs a shape's first call
+    eagerly, captures at its second, and replays from then on, counting
+    each replay as ``encode_graph`` with its host seconds in the caller's
+    registry (``inner_record``)."""
+
+    def __init__(self, model: nn.Module, device: torch.device):
+        self.model, self.device = model, device
+        self.lock = threading.Lock()
+        self.seen = set()
+        self.graphs = {}  # input shape -> (graph, static input, static output)
+        self.stream = None  # the capture stream
+        self.pool = None  # one memory pool for every graph of the model
+        self.last = None  # the stream of the latest replay
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        key = tuple(x.shape)
+        with self.lock:
+            entry = self.graphs.get(key)
+            if entry is None and key in self.seen:
+                entry = self.graphs[key] = self._capture(x)
+            self.seen.add(key)
+            if entry is not None:
+                return self._replay(entry, x)
+        return self.model(x[0], x[1])
+
+    def _capture(self, x: torch.Tensor):
+        with torch.cuda.device(self.device):
+            cur = torch.cuda.current_stream()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+                self.pool = torch.cuda.graph_pool_handle()
+            static_in = torch.empty_like(x)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                self.model(x[0], x[1])  # warms the capture stream's cuBLAS
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    static_out = self.model(static_in[0], static_in[1])
+                finally:
+                    graph.capture_end()
+            cur.wait_stream(self.stream)
+        return graph, static_in, static_out
+
+    def _replay(self, entry, x: torch.Tensor) -> torch.Tensor:
+        graph, static_in, static_out = entry
+        t0 = time.monotonic_ns()
+        with torch.cuda.device(self.device):
+            cur = torch.cuda.current_stream()
+            if self.last is not None and self.last != cur:
+                cur.wait_stream(self.last)
+            self.last = cur
+            static_in.copy_(x)
+            graph.replay()
+            out = static_out.clone()
+        inner_record("encode_graph", (time.monotonic_ns() - t0) / 1e9)
+        return out
+
+
 # ---- the encode_batch protocol ---------------------------------------------
 
 
@@ -499,6 +604,7 @@ class TorchEncoder:
                                   getattr(torch, self.cfg.dtype))
         )
         self.model.eval()
+        self.graphed = GraphedForward(self.model, self.device)
 
     @property
     def dim(self) -> int:
@@ -554,17 +660,26 @@ class TorchEncoder:
         Inside a caller's span (the engine's ``query_encode``), each chunk
         is two child spans in the caller's registry: ``encode_tokens``
         (tokenize, pad, the pinned upload) and ``encode_forward`` (the
-        host's enqueue of the forward)."""
+        host's enqueue of the forward, eager or a graph's replay; a replay
+        also counts as ``encode_graph``)."""
         chunks = []
         with torch.no_grad():
             for i in range(0, len(texts), self.batch_size):
                 with inner_timer("encode_tokens"):
                     x = self._upload(texts[i : i + self.batch_size])
                 with inner_timer("encode_forward"):
-                    chunks.append(self.model(x[0], x[1]))
+                    chunks.append(self._forward(x))
         if not chunks:
             return torch.zeros(0, self.cfg.dim, device=self.device)
         return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward of one uploaded chunk [2, n, L]: from a graph where
+        ``replays_graph`` says so, else eager."""
+        if replays_graph(self.device, x.shape[1], x.shape[2],
+                         torch.is_grad_enabled(), self.batch_size):
+            return self.graphed(x)
+        return self.model(x[0], x[1])
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
         return self.encode_batch_device(list(texts)).cpu().numpy()

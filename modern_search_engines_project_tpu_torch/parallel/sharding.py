@@ -813,14 +813,18 @@ class ShardedQueryEncoder:
 def replica(encoder, device: torch.device):
     """``encoder`` (a ``TorchEncoder``) on ``device``: itself when it is
     there already, else a shallow copy whose model's weights are copied
-    to ``device`` once."""
+    to ``device`` once, with graphs of its own (``GraphedForward``)."""
     if encoder.device == device:
         return encoder
-    from modern_search_engines_project_tpu_torch.models.encoder import BiEncoder
+    from modern_search_engines_project_tpu_torch.models.encoder import (
+        BiEncoder,
+        GraphedForward,
+    )
 
     rep = copy.copy(encoder)
     rep.device = device
     rep.model = BiEncoder(encoder.cfg, device)
     rep.model.load_state_dict(encoder.model.state_dict())
     rep.model.eval()
+    rep.graphed = GraphedForward(rep.model, device)
     return rep

@@ -163,6 +163,14 @@ def inner_timer(stage: str):
     return stage_timer(stage, stack[-1][1])
 
 
+def inner_record(stage: str, seconds: float) -> None:
+    """One call of counter ``stage`` that took ``seconds``, in the
+    registry ``inner_timer`` would pick; nothing where no span is open."""
+    stack = _open_spans()
+    if stack:
+        stack[-1][1].record(stage, seconds)
+
+
 @contextlib.contextmanager
 def device_trace(out_dir: Optional[str] = None, device=None) -> Iterator[None]:
     """``torch.profiler`` trace context (no-op when ``out_dir`` is None).

@@ -71,6 +71,10 @@ from modern_search_engines_project_tpu_torch.retrieval.device_index import (
     pack_slot_classes,
 )
 from modern_search_engines_project_tpu_torch.retrieval.engine import SearchEngine
+from modern_search_engines_project_tpu_torch.utils.timing import (
+    StageTimes,
+    stage_timer,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -983,6 +987,119 @@ def test_engine_with_encoder_on_card_matches_cpu(cuda):
         _same_results(got, want)
         assert any(len(r) for r in got)
         _same_results(gpu.search_batch(qs, top_k=10), got)
+
+
+# ---- the bi-encoder's forward from CUDA graphs ------------------------------
+
+# words a text so that the longest row lands in token bucket L
+GRAPH_WORDS = {16: 12, 32: 20, 64: 36}
+
+
+@pytest.fixture(scope="module")
+def graph_tree(cuda):
+    """The reference's default config (12 layers, 768 wide) and a tree of
+    weights drawn from a numpy seed."""
+    cfg = EncoderConfig()
+    rng = np.random.default_rng(7)
+    return cfg, init_reference_params(
+        cfg, lambda s: rng.standard_normal(s, dtype=np.float32))
+
+
+@pytest.fixture(scope="module")
+def graph_encoder(graph_tree):
+    return TorchEncoder(graph_tree[0], params=graph_tree[1])
+
+
+def _graph_texts(seed, n, L):
+    rng = np.random.default_rng(seed)
+    most = GRAPH_WORDS[L]
+    counts = [most] + list(rng.integers(1, most + 1, n - 1))
+    return [" ".join(f"w{j}" for j in rng.integers(0, 5000, c))
+            for c in counts]
+
+
+def _eager(enc, texts):
+    with torch.no_grad():
+        x = enc._upload(texts)
+        return enc.model(x[0], x[1])
+
+
+@pytest.mark.parametrize("L", [16, 32, 64])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32, 64])
+def test_graphed_encode_equals_eager_bit_for_bit(graph_encoder, n, L):
+    """A shape's first call runs eagerly, its second captures and replays,
+    later calls replay: each result equals the eager forward's bits, and
+    ``encode_graph`` counts one replay a call from the capture on."""
+    enc = graph_encoder
+    texts = _graph_texts(n * 1000 + L, n, L)
+    assert enc.bucket_len([enc.tokenizer.encode(t) for t in texts]) == L
+    want = _eager(enc, texts)
+    times = StageTimes()
+    for call in range(4):
+        with stage_timer("query_encode", times):
+            got = enc.encode_batch_device(texts)
+        r = times.report()
+        assert r["encode_forward"]["count"] == call + 1
+        assert r.get("encode_graph", {"count": 0})["count"] == call
+        assert got.shape == (n, 768) and got.dtype == torch.float32
+        assert torch.equal(got, want), (n, L, call)
+    assert (2, n, L) in enc.graphed.graphs
+
+
+def test_graphed_encode_from_two_threads(graph_tree):
+    """Two threads, 20 calls each through one fresh encoder, batches of
+    mixed shapes (captures fall while the other thread encodes): every
+    result equals its batch's eager encode, read after both threads are
+    done, so no later replay overwrote an earlier batch's output."""
+    import threading
+
+    enc = TorchEncoder(graph_tree[0], params=graph_tree[1])
+    rng = np.random.default_rng(11)
+    shapes = [(n, L) for n in (1, 4, 16, 64) for L in (16, 32, 64)]
+    work = [[_graph_texts(1000 * t + i, *shapes[rng.integers(len(shapes))])
+             for i in range(20)] for t in range(2)]
+    want = [[_eager(enc, texts) for texts in w] for w in work]
+    got = [[], []]
+    times = StageTimes()
+    errors = []
+
+    def run(t):
+        try:
+            for texts in work[t]:
+                with stage_timer("query_encode", times):
+                    got[t].append(enc.encode_batch_device(texts))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not errors and all(not th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    for t in range(2):
+        for i, (g, w) in enumerate(zip(got[t], want[t])):
+            assert torch.equal(g, w), (t, i, tuple(g.shape))
+    seen = {(len(texts), enc.bucket_len([enc.tokenizer.encode(x)
+                                          for x in texts]))
+            for w in work for texts in w}
+    r = times.report()
+    assert r["encode_forward"]["count"] == 40
+    assert r["encode_graph"]["count"] == 40 - len(seen)
+
+
+def test_long_inputs_stay_eager(graph_encoder):
+    """Windows of 128 tokens and more run eagerly: no graph, no count."""
+    enc = graph_encoder
+    texts = [" ".join(f"w{j}" for j in range(100))] * 2
+    times = StageTimes()
+    for _ in range(3):
+        with stage_timer("query_encode", times):
+            got = enc.encode_batch_device(texts)
+    assert "encode_graph" not in times.report()
+    assert not any(k[2] > 64 for k in enc.graphed.graphs)
+    assert torch.equal(got, _eager(enc, texts))
 
 
 # ---- stage 3 and the summary decoder on the card ----------------------------

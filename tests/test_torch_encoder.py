@@ -43,7 +43,12 @@ from modern_search_engines_project_tpu_torch.config import Config
 from modern_search_engines_project_tpu_torch.index import IndexBuilder
 from modern_search_engines_project_tpu_torch.models import checkpoint as port_ckpt
 from modern_search_engines_project_tpu_torch.models import encoder as port
+from modern_search_engines_project_tpu_torch.parallel.sharding import replica
 from modern_search_engines_project_tpu_torch.retrieval import SearchEngine
+from modern_search_engines_project_tpu_torch.utils.timing import (
+    StageTimes,
+    stage_timer,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "runs", "encoder-demo")
@@ -371,6 +376,77 @@ def test_encoder_needs_a_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.TorchEncoder(cfg)
     assert port.TorchEncoder(cfg, device="cpu").device.type == "cpu"
+
+
+# ---- the forward from CUDA graphs: the shape rule, and the CPU path ------------
+
+SMALL = port.EncoderConfig(vocab_size=64, dim=16, n_layers=1, n_heads=2,
+                           mlp_ratio=2, max_len=64)
+
+
+@pytest.mark.parametrize("device,n,L,grad,want", [
+    ("cuda", 1, 16, False, True),
+    ("cuda", 64, 64, False, True),
+    ("cuda:1", 4, 32, False, True),  # a sharded encoder's replica
+    ("cuda", 65, 16, False, False),  # more rows than batch_size
+    ("cuda", 0, 16, False, False),
+    ("cuda", 8, 128, False, False),  # document windows stay eager
+    ("cuda", 8, 512, False, False),
+    ("cuda", 8, 16, True, False),  # under autograd
+    ("cpu", 4, 16, False, False),
+])
+def test_shape_rule_picks_the_graph(device, n, L, grad, want):
+    assert port.replays_graph(torch.device(device), n, L, grad, 64) is want
+
+
+def test_cpu_encode_takes_no_graph(encoders):
+    _, te = encoders
+    times = StageTimes()
+    for _ in range(3):
+        with stage_timer("query_encode", times):
+            te.encode_batch_device(TEXTS)
+    r = times.report()
+    assert r["encode_tokens"]["count"] == r["encode_forward"]["count"] == 6
+    assert "encode_graph" not in r
+    assert not te.graphed.seen and not te.graphed.graphs
+
+
+def test_graphed_forward_captures_at_a_shapes_second_call(monkeypatch):
+    """The first call at a shape runs eagerly, the second captures then
+    replays, later ones replay; shapes are kept apart."""
+    enc = port.TorchEncoder(SMALL, device="cpu")
+    g, log = enc.graphed, []
+
+    def capture(x):
+        log.append(("capture", tuple(x.shape)))
+        return "graph"
+
+    def replay(entry, x):
+        log.append(("replay", entry))
+        return enc.model(x[0], x[1])
+
+    monkeypatch.setattr(g, "_capture", capture)
+    monkeypatch.setattr(g, "_replay", replay)
+    x16, x32 = enc._upload(["a b"] * 2), enc._upload(["a " * 20] * 2)
+    with torch.no_grad():
+        outs = [g(x) for x in (x16, x16, x32, x16, x32)]
+        want = enc.model(x16[0], x16[1])
+    assert log == [("capture", (2, 2, 16)), ("replay", "graph"),
+                   ("replay", "graph"), ("capture", (2, 2, 32)),
+                   ("replay", "graph")]
+    for out in (outs[0], outs[1], outs[3]):
+        assert torch.equal(out, want)
+
+
+def test_replica_gets_graphs_of_its_own():
+    """A sharded encoder's replica on another device replays its own
+    model's graphs, never the original's."""
+    enc = port.TorchEncoder(SMALL, device="cpu")
+    rep = replica(enc, torch.device("cpu", 0))
+    assert rep.model is not enc.model
+    assert rep.graphed is not enc.graphed
+    assert rep.graphed.model is rep.model and rep.graphed.device == rep.device
+    assert enc.graphed.model is enc.model
 
 
 # ---- the engine with the bi-encoder --------------------------------------------

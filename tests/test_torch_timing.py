@@ -18,6 +18,7 @@ from modern_search_engines_project_tpu_torch.models import (
 from modern_search_engines_project_tpu_torch.retrieval import SearchEngine
 from modern_search_engines_project_tpu_torch.utils.timing import (
     StageTimes,
+    inner_record,
     inner_timer,
     stage_timer,
 )
@@ -163,6 +164,24 @@ def test_inner_timer_records_into_the_enclosing_registry():
     assert other.report()["inner"]["count"] == 1
 
 
+def test_inner_record_counts_into_the_innermost_registry():
+    """A counter recorded with no span open goes nowhere; inside spans of
+    two registries it lands in the innermost span's, with no off-CPU
+    entry (a counter has no CPU time)."""
+    outer, inner = StageTimes(), StageTimes()
+    inner_record("alone", 1.0)
+    with stage_timer("outer", outer):
+        with stage_timer("inner", inner):
+            inner_record("replay", 0.25)
+            inner_record("replay", 0.5)
+        inner_record("after", 0.125)
+    r = inner.report()
+    assert r["replay"] == {"total_s": 0.75, "count": 2, "mean_ms": 375.0}
+    assert "replay.offcpu" not in r and "after" not in r
+    assert outer.report()["after"]["count"] == 1
+    assert "alone" not in outer.report() and "alone" not in r
+
+
 @pytest.fixture(scope="module")
 def engine():
     docs = make_corpus(n_docs=40, seed=3, min_len=40, max_len=120)
@@ -214,6 +233,7 @@ def test_engine_hands_its_times_to_the_encoder(engine):
     engine.search_batch(QUERIES[:2])
     r = fresh.report()
     assert r["encode_tokens"]["count"] == r["encode_forward"]["count"] == 1
+    assert "encode_graph" not in r  # the CPU runs the forward eagerly
     assert r["device_rank"]["count"] == 1
     twin.search_batch(QUERIES[:2])
     twin.search_batch(QUERIES[:3])
