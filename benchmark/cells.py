@@ -1,10 +1,14 @@
-"""Cells, configurations, traffic mixes and metric readers, found by name.
+"""Cells, configurations, traffic mixes, kinds and metric readers, found
+by name.
 
 ``BENCHMARK.json`` names each cell's configuration and traffic mix; the
 configuration is ``configs/<config>.json`` and the mix
 ``traffic/<traffic>.json`` beside this file, and each metric is read by
-``metrics/<metric name>.py``.  A new cell, mix, configuration or metric is
-a new file and a new entry: no file here changes.
+``metrics/<metric name>.py``.  A configuration's ``kind`` (``search``
+where it names none) is the program it runs: ``kinds/<kind>.py``, which
+starts that program, plans its requests and judges its replies.  A new
+cell, mix, configuration, kind or metric is a new file and a new entry:
+no file here changes.
 
 A metric reader module sets ``UNIT``, ``SOURCE``, ``LAYER`` (None for an
 end-to-end metric) and ``MOVES`` (the end-to-end metric it should move;
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from typing import Dict
 
@@ -49,6 +54,7 @@ def cell(name: str, root: Path = ROOT) -> Dict:
 
     return {
         "name": name,
+        "root": root,
         "chips": w["chips"],
         "config": load_json(root / conf["file"]),
         "traffic": load_json(root / "benchmark" / "traffic"
@@ -56,6 +62,24 @@ def cell(name: str, root: Path = ROOT) -> Dict:
         "end_to_end": mine(s["end_to_end"]),
         "per_layer": mine(s["per_layer"]),
     }
+
+
+def kind_name(cfg: Dict) -> str:
+    """The kind a configuration names; ``search`` where it names none."""
+    return cfg.get("kind", "search")
+
+
+def kind(name: str, here: Path = HERE):
+    """The kind module ``kinds/<name>.py`` under ``here``."""
+    path = here / "kinds" / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no kind {name!r}: {path} is missing")
+    mod_name = "benchmark_kind_" + name.replace(".", "_").replace("-", "_")
+    sp = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(sp)
+    sys.modules[mod_name] = mod  # dataclasses look their module up there
+    sp.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: Dict, here: Path = HERE):

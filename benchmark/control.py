@@ -70,12 +70,13 @@ def sample_queries(cell: dict, corp, seed: int):
 
 def fp8_checks(cell: dict, corp, seed: int, device) -> dict:
     """The fp8 control's numbers beside the cell's limits."""
-    from benchmark import check, run
+    from benchmark import check
+    from benchmark.kinds import search
 
     cfg = cell["config"]
     served = fp8_served(cfg, corp, seed, sample_queries(cell, corp, seed),
                         device)
-    return check.checks(run.judge(cfg, corp, seed, served, device),
+    return check.checks(search.judge_served(cfg, corp, seed, served, device),
                         cfg["correct"]["limits"])
 
 

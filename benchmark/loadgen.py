@@ -5,17 +5,19 @@ standard input, opens keep-alive connections to 127.0.0.1, prints
 "ready", waits for one line holding the window's start on the shared
 monotonic clock, runs the loop, and prints one JSON line of records.
 
-Header keys: ``port``, ``path``, ``loop`` ("open" or "closed"),
-``seconds``, ``drain_s``, ``n_bodies``; for the open loop ``offsets``
-(each request's send time from the start, one body a request on
-standard input), ``max_connections`` (the most connections it opens) and
-``keep`` (indices of the requests whose replies come back); for the
-closed loop ``connections`` (each sends its next request when its reply
-arrives), ``draw`` (``QueryStream``'s arguments: ``seed``, ``words``,
-``dfs``, ``model``, ``exclude``; the loop draws a fresh query for each
-request, so no pool runs dry) and ``sample`` (how many requests, drawn
-uniformly from those sent by a seeded reservoir, have their replies
-come back).
+Header keys: ``port``, ``path`` (where every request is posted),
+``kind`` (the cell's kind, ``benchmark/kinds/<kind>.py``), ``loop``
+("open" or "closed"), ``seconds``, ``drain_s``, ``n_bodies``; for the
+open loop ``offsets`` (each request's send time from the start, one body
+a request on standard input), ``max_connections`` (the most connections
+it opens) and ``keep`` (indices of the requests whose replies come
+back); for the closed loop ``connections`` (each sends its next request
+when its reply arrives), ``draw`` (the arguments of the kind's
+``stream``, which gives a fresh body for each request, so no pool runs
+dry; its ``seed`` also seeds the sample) and ``sample`` (how many
+requests, drawn uniformly from those sent by a seeded reservoir, have
+their replies come back).  A header without ``path`` or ``kind`` is the
+search kind's.
 
 Each record is [index, due, sent, done, status, nbytes] in seconds of the
 monotonic clock; ``done`` is the last byte of the reply, or null for a
@@ -38,7 +40,7 @@ from typing import List
 
 import numpy as np
 
-from benchmark.queries import QueryStream
+from benchmark import cells
 
 CONNECT_AHEAD = 64  # connections opened before the window (open loop)
 
@@ -167,7 +169,7 @@ async def open_loop(hdr, datas, pool, start, rec, keep, bodies):
     return tasks
 
 
-async def closed_loop(hdr, stream, pool, start, rec, keep, bodies,
+async def closed_loop(hdr, next_body, pool, start, rec, keep, bodies,
                       requests, path):
     end = start + hdr["seconds"]
     sample = Reservoir(hdr["sample"], hdr["draw"]["seed"])
@@ -179,7 +181,7 @@ async def closed_loop(hdr, stream, pool, start, rec, keep, bodies,
     async def client():
         while time.monotonic() < end:
             i = next(counter)
-            body = json.dumps({"query": stream.next()})
+            body = next_body()
             kept, out = sample.offer(i)
             if out is not None:
                 keep.discard(out)
@@ -208,10 +210,8 @@ async def main_async(hdr, texts, stdin, stdout) -> dict:
         n_ahead = min(CONNECT_AHEAD, hdr["max_connections"])
     else:
         keep, requests = set(), {}
-        d = hdr["draw"]
-        stream = QueryStream(d["seed"], d["words"], d["dfs"], d["model"],
-                             exclude=d["exclude"])
-        stream.next()  # the first block drawn before the window
+        next_body = cells.kind(hdr.get("kind", "search")).stream(hdr["draw"])
+        next_body()  # the first draw (a block of queries) before the window
         pool = Pool(hdr["port"], hdr["connections"])
         n_ahead = hdr["connections"]
     pool.idle.extend([await pool.open() for _ in range(n_ahead)])
@@ -221,8 +221,8 @@ async def main_async(hdr, texts, stdin, stdout) -> dict:
     if hdr["loop"] == "open":
         tasks = await open_loop(hdr, datas, pool, start, rec, keep, bodies)
     else:
-        tasks = await closed_loop(hdr, stream, pool, start, rec, keep, bodies,
-                                  requests, path)
+        tasks = await closed_loop(hdr, next_body, pool, start, rec, keep,
+                                  bodies, requests, path)
     limit = start + hdr["seconds"] + hdr["drain_s"]
     _, pending = await asyncio.wait(
         tasks, timeout=max(0.0, limit - time.monotonic()))

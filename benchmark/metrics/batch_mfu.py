@@ -8,7 +8,7 @@ from benchmark import readers
 UNIT = "%"
 SOURCE = "host_clock"
 LAYER = "One device batch, whole"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

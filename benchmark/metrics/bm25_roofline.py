@@ -8,7 +8,7 @@ from benchmark import readers
 UNIT = "%"
 SOURCE = "device_trace"
 LAYER = "BM25 kernels (csrc/bm25_slots.cu, retrieval/bm25_slots.py)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 KERNELS = ("slots_kernel", "pack_afrag_kernel", "blocked_kernel",
            "blocked_udedup_kernel", "pack_weights_kernel")
 

@@ -7,7 +7,7 @@ from benchmark import readers
 UNIT = "%"
 SOURCE = "device_trace"
 LAYER = "Kernel 4 (csrc/dense_stats.cu, retrieval/dense_stats.py)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 KERNELS = ("stats_kernel",)
 
 

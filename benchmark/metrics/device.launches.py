@@ -6,7 +6,7 @@ from benchmark import readers
 UNIT = "launches/batch"
 SOURCE = "device_trace"
 LAYER = "Device (enqueue)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

@@ -6,7 +6,7 @@ from benchmark import readers
 UNIT = "ms"
 SOURCE = "program_span"
 LAYER = "Query encoder (models/encoder.py TorchEncoder via engine.encode_queries)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

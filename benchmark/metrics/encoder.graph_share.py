@@ -6,7 +6,7 @@ counts no replay has nothing here to read."""
 UNIT = "%"
 SOURCE = "program_counter"
 LAYER = "Query encoder (models/encoder.py TorchEncoder via engine.encode_queries)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

@@ -6,7 +6,7 @@ from benchmark import readers
 UNIT = "ms"
 SOURCE = "program_span"
 LAYER = "Host finishing (retrieval/engine.py finish_batch, search_batch_indices)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

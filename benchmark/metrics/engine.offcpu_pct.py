@@ -10,7 +10,7 @@ from benchmark import program_spans
 UNIT = "%"
 SOURCE = "program_span"
 LAYER = "Host threads (utils/timing.py StageTimes: the dispatchers' leaf spans)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

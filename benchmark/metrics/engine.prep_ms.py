@@ -6,7 +6,7 @@ from benchmark import readers
 UNIT = "ms"
 SOURCE = "program_span"
 LAYER = "Host query prep (retrieval/engine.py prepare_queries, text/)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

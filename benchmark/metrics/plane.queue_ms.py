@@ -7,7 +7,7 @@ from benchmark import readers
 UNIT = "ms"
 SOURCE = "program_counter"
 LAYER = "HTTP plane (serving/fastpath.py, native/http_server.cpp; serving/api.py, serving/batcher.py)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

@@ -6,7 +6,7 @@ from benchmark import readers
 UNIT = "ms"
 SOURCE = "program_span"
 LAYER = "Ranking dispatch (retrieval/engine.py device_rank: _device_rank, _to_host)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

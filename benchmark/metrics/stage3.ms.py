@@ -6,7 +6,7 @@ from benchmark import readers
 UNIT = "ms"
 SOURCE = "host_clock"
 LAYER = "Stage 3 (models/cross_encoder.py CrossEncoderReranker.rescore)"
-MOVES = "p95_ms"
+MOVES = "in_limit_pct"
 
 
 def read(ctx):

@@ -1,18 +1,28 @@
-"""One run of one benchmark cell of the port's ``/api/search``.
+"""One run of one benchmark cell.
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-From the root of a checkout.  In one process, in order: make the cell's
-index and draw the model weights from the seed on the card, start the
-plane the cell's configuration names, warm the cell's own batch shapes,
-start the load generator (``benchmark/loadgen.py``) as its own process,
-measure for ``--seconds``, stop the plane and free the program, judge a
-sample of the served replies against the reference
-(``benchmark/reference.py``, ``benchmark/check.py``) and print the result
-as the last line of standard output.  With ``--trace 1`` the metrics are
-the cell's per-layer ones, read from the benchmark's spans around the
-engine's calls, the program's counters and a ``torch.profiler`` trace of
-the last few seconds of the window.
+From the root of a checkout.  In one process, in order: start the
+program of the cell's kind (``benchmark/kinds/<kind>.py``, which makes its
+inputs and draws its weights from the seed on the card and warms the
+cell's own shapes), start the load generator (``benchmark/loadgen.py``)
+as its own process with the kind's plan of requests, measure for
+``--seconds``, stop and free the program, have the kind judge a sample of
+the replies against its plain reference (``benchmark/check.py`` holds the
+numbers to the configuration's limits) and print the result as the last
+line of standard output.  With ``--trace 1`` the metrics are the cell's
+per-layer ones, read from the kind's spans, the program's counters and a
+``torch.profiler`` trace of the last few seconds of the window.
+
+A kind module provides ``start(cell, seed, device, marks, **opts)`` ->
+(program, state), the program with ``port``, ``counters()`` (``{"at",
+"plane": {"queries", "batches"}, "stages": {name: (total_s, count)}}``)
+and ``stop()``; ``plan(cell, seed, seconds, state)`` -> ``{"header",
+"bodies"}`` for the load generator; ``stream(draw)``, the closed loop's
+next body; ``spans(program, state, cell)``, the benchmark's spans or
+None; ``shapes(state, cell)``, ``ctx.shapes``; and ``judge(cell, seed,
+state, sample, device)`` -> (numbers, counts) over the sampled (request
+body, reply body) pairs.
 
 Exits non-zero, printing no result, without enough CUDA devices, or if
 JAX or the JAX package was loaded in this process.
@@ -34,12 +44,9 @@ from pathlib import Path  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 from typing import Dict, Optional  # noqa: E402
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark import cells, check, corpus as corpus_mod, queries  # noqa: E402
-from benchmark import reference, stats, trace as trace_mod, weights  # noqa: E402
-from benchmark.planes import Program  # noqa: E402
+from benchmark import cells, check, stats, trace as trace_mod  # noqa: E402
 
 BANNED = ("jax", "jaxlib", "flax", "modern_search_engines_project_tpu")
 
@@ -134,141 +141,24 @@ class LoadGen:
             self.proc.wait()
 
 
-def warm_batches(seed: int, corp, traffic: Dict):
-    w = traffic["warm"]
-    sizes = [b for b in w["batch_sizes"] for _ in range(w["repeats"])]
-    qs = queries.draw_queries(seed, corp.words, corp.dfs, sum(sizes),
-                              traffic["queries"], stream=5)
-    out, at = [], 0
-    for b in sizes:
-        out.append(qs[at : at + b])
-        at += b
-    return out
-
-
-def window_plan(seed: int, seconds: float, corp, traffic: Dict, cfg: Dict,
-                exclude) -> Dict:
-    """The load generator's header and the open loop's request bodies.
-
-    The open loop's requests are all known ahead: their bodies go with
-    the header, and the judged sample is drawn from them here.  The
-    closed loop draws a fresh query of the same model for each request it
-    sends, and keeps a seeded uniform sample of ``correct.sample`` of
-    them (``loadgen.Reservoir``)."""
-    header = {"loop": traffic["loop"], "seconds": seconds,
-              "drain_s": traffic["drain_s"]}
-    if traffic["loop"] != "open":
-        header.update(connections=traffic["connections"],
-                      sample=cfg["correct"]["sample"],
-                      draw={"seed": int(seed), "words": list(corp.words),
-                            "dfs": np.asarray(corp.dfs).tolist(),
-                            "model": traffic["queries"],
-                            "exclude": sorted(exclude)})
-        return {"header": header, "bodies": []}
-    offsets = queries.arrivals(seed, traffic["rate_qps"], seconds)
-    n = len(offsets)
-    rng = np.random.default_rng([int(seed), 4])
-    keep = rng.choice(n, min(n, cfg["correct"]["sample"]), replace=False)
-    qs = queries.draw_queries(seed, corp.words, corp.dfs, n + len(exclude),
-                              traffic["queries"])
-    qs = [q for q in qs if q not in exclude][:n]
-    header.update(offsets=offsets.tolist(),
-                  max_connections=traffic["max_connections"],
-                  keep=sorted(int(k) for k in keep))
-    return {"header": header, "bodies": [json.dumps({"query": q}) for q in qs]}
-
-
-def judge(cfg: Dict, corp, seed: int, served: Dict, device) -> Dict[str, float]:
-    """The numbers compared over ``served`` (query -> served rows, or None
-    for a reply that is no search reply)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    ref = reference.Reference(corp, cfg["engine"])
-    enc_cfg, ce_cfg = cfg["encoder"], cfg.get("cross_encoder")
-    qs = list(served)
-    qvec = reference.embed(
-        weights.draw_tree(seed, enc_cfg, False, device), enc_cfg,
-        reference.HashTokens(enc_cfg["vocab_size"]),
-        [reference.processed(q) for q in qs], device)
-    if ce_cfg:
-        cw = weights.draw_tree(seed, ce_cfg, True, device)
-        ctok = reference.HashTokens(ce_cfg["vocab_size"])
-    out: Dict[str, float] = {}
-    for q, v in zip(qs, qvec):
-        rows = served[q]
-        if rows is None:
-            nums = dict.fromkeys(cfg["correct"]["limits"], 1.0)
-        elif ce_cfg:
-            texts = [corp.window_texts[w] if 0 <= w < corp.n_chunks else ""
-                     for _, w, _ in rows]
-            ce = reference.cross_scores(cw, ce_cfg, ctok, q, texts, device)
-            nums = check.stage3_numbers(rows, ref.stage2(q, v), ce, ref.domain)
-        else:
-            nums = check.stage2_numbers(rows, ref.stage2(q, v), ref.domain)
-        for k, x in nums.items():
-            out[k] = max(out.get(k, 0.0), x)
-    return out
-
-
-def parse_reply(body: str):
-    """Served rows of a reply, or None where it is no search reply."""
-    try:
-        return check.served_rows(body)
-    except (ValueError, KeyError, TypeError):
-        return None
-
-
-def start(cell: Dict, seed: int, device, bank_dtype=None, marks=None):
-    """The corpus, and the program serving it, started and warmed:
-    (corpus, program, warm-up batches).  ``marks``, where given, gets the
-    monotonic time at which each stage of set-up ended."""
-    marks = {} if marks is None else marks
-    cfg = cell["config"]
-    corp = corpus_mod.make_corpus(seed, cfg["corpus"], device)
-    corp.freeze()
-    marks["corpus"] = time.monotonic()
-    enc_np = weights.to_numpy(weights.draw_tree(seed, cfg["encoder"], False,
-                                                device))
-    ce_np = None
-    if cfg.get("cross_encoder"):
-        ce_np = weights.to_numpy(weights.draw_tree(
-            seed, cfg["cross_encoder"], True, device))
-    marks["weights"] = time.monotonic()
-    prog = Program(cfg, corp, enc_np, ce_np, device, bank_dtype=bank_dtype)
-    del enc_np, ce_np
-    try:
-        prog.start()
-        marks["program"] = time.monotonic()
-        warm = warm_batches(seed, corp, cell["traffic"])
-        prog.warm(warm)
-        marks["warm-up"] = time.monotonic()
-    except BaseException:
-        prog.stop()
-        raise
-    return corp, prog, warm
-
-
 def run_cell(cell: Dict, seed: int, seconds: float, trace: bool,
-             device="cuda", faults=None, bank_dtype=None,
-             t_start: float = T_START) -> Dict:
-    """Run ``cell`` once; returns the result line's object, with keys
-    that start with "_" for ``main`` to print on earlier lines."""
+             device="cuda", t_start: float = T_START, **opts) -> Dict:
+    """Run ``cell`` once; ``opts`` go to its kind's ``start``.  Returns the
+    result line's object, with keys that start with "_" for ``main`` to
+    print on earlier lines."""
     cfg, traffic = cell["config"], cell["traffic"]
-    gen = LoadGen(cells.ROOT)
+    root = Path(cell.get("root", cells.ROOT))
+    name = cells.kind_name(cfg)
+    kind = cells.kind(name, root / "benchmark")
+    gen = LoadGen(root)
     prog = None
     try:
         marks = {"start": t_start}
-        corp, prog, warm = start(cell, seed, device, bank_dtype, marks)
-        bank_off = prog.banks_not_of(cfg["corpus"]["bank_dtype"])
-        if faults is not None:
-            faults(prog.engine)
-        spans = None
-        if trace:
-            spans = trace_mod.Spans(corp, cfg["encoder"])
-            spans.install(prog.engine)
-        plan = window_plan(seed, seconds, corp, traffic, cfg,
-                           exclude=set(warm[-1][:3]))
-        gen.prepare(dict(plan["header"], port=prog.port), plan["bodies"])
+        prog, state = kind.start(cell, seed, device, marks, **opts)
+        spans = kind.spans(prog, state, cell) if trace else None
+        plan = kind.plan(cell, seed, seconds, state)
+        gen.prepare(dict(plan["header"], port=prog.port, kind=name),
+                    plan["bodies"])
         if device != "cpu":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -304,9 +194,7 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool,
         gen.kill()
     batches = spans.batches(t0, t1) if spans is not None else []
     span_list = spans.spans if spans is not None else []
-    shapes = {"n_docs": corp.n_docs, "n_chunks": corp.n_chunks,
-              "dim": cfg["corpus"]["dim"], "bank_dtype": cfg["corpus"]["bank_dtype"],
-              "encoder": cfg["encoder"], "cross_encoder": cfg.get("cross_encoder")}
+    shapes = kind.shapes(state, cell)
     del prog, spans
     gc.collect()
     if device != "cpu":
@@ -318,21 +206,20 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool,
     attempted = len(records)
     n_ok = sum(1 for r in records if stats.ok(r))
     by_index = {r[0]: r for r in records}
-    sample = {}
+    sample = []
     sample_failed = 0
     for k in out["keep"]:
         r = by_index.get(k)
         if r is None or not stats.ok(r) or str(k) not in out["bodies"]:
             sample_failed += 1
         else:
-            q = json.loads(out["requests"][str(k)])["query"]
-            sample[q] = parse_reply(out["bodies"][str(k)])
-    numbers = judge(cfg, corp, seed, sample, device)
+            sample.append((out["requests"][str(k)], out["bodies"][str(k)]))
+    numbers, counts = kind.judge(cell, seed, state, sample, device)
     wanted = min(attempted, cfg["correct"]["sample"])
     checks = check.checks(numbers, cfg["correct"]["limits"], counts={
         "judged_short": wanted - len(sample),
         "sample_failed": sample_failed,
-        "bank_dtype_off": bank_off})
+        **counts})
     correct = check.verdict(checks) and len(sample) >= 1
 
     ctx = SimpleNamespace(
@@ -342,7 +229,7 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool,
     entries = cell["per_layer"] if trace else cell["end_to_end"]
     metrics = {}
     for m in entries:
-        v = cells.reader(m).read(ctx)
+        v = cells.reader(m, here=root / "benchmark").read(ctx)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     if device == "cpu":
@@ -383,6 +270,9 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool,
             key = str(r[4]) if r[4] else (r[5] or "no reply")
             fails[key] = fails.get(key, 0) + 1
     result["_failures"] = fails
+    lat = stats.latencies_ms(records)
+    result["_latency_ms"] = {f"p{round(100 * q)}": stats.pct(lat, q)
+                             for q in (0.5, 0.95, 0.99)}
     lat = sorted(stats.lateness_ms(records))
     result["checks"] = checks
     result["_lateness_ms"] = {
@@ -424,6 +314,9 @@ def main(argv: Optional[list] = None) -> int:
               file=sys.stderr)
     print(f"generator lateness ms: p50 {late['p50']} p99 {late['p99']} "
           f"max {late['max']}", file=sys.stderr)
+    print("client latency ms: " + " ".join(
+        f"{k} {v}" for k, v in result.pop("_latency_ms").items()),
+        file=sys.stderr)
     for k, v in result["checks"].items():
         print(f"check {k} {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

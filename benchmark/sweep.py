@@ -1,4 +1,5 @@
-"""Find a configuration's knee: the highest offered rate its plane keeps.
+"""Find a search configuration's knee: the highest offered rate its plane
+keeps.
 
 On the chip, in one process (one set-up), an open loop of the cell's
 query model at each rate for ``--seconds``:
@@ -39,6 +40,7 @@ ANSWERED = 0.95
 def one_rate(prog, corp, cell, seed: int, rate: float, seconds: float,
              stream: int) -> dict:
     from benchmark import queries, run, stats
+    from benchmark.kinds import search
 
     traffic = cell["traffic"]
     offsets = queries.arrivals(seed + stream, rate, seconds)
@@ -46,7 +48,8 @@ def one_rate(prog, corp, cell, seed: int, rate: float, seconds: float,
                               traffic["queries"], stream=100 + stream)
     gen = run.LoadGen(run.cells.ROOT)
     try:
-        gen.prepare({"loop": "open", "offsets": offsets.tolist(),
+        gen.prepare({"loop": "open", "path": search.PATH,
+                     "offsets": offsets.tolist(),
                      "max_connections": traffic["max_connections"],
                      "seconds": seconds, "drain_s": traffic["drain_s"],
                      "keep": [], "port": prog.port},
@@ -77,12 +80,13 @@ def one_rate(prog, corp, cell, seed: int, rate: float, seconds: float,
 def measure(args) -> dict:
     import torch
 
-    from benchmark import cells, run
+    from benchmark import cells
+    from benchmark.kinds import search
 
     cell = cells.cell(args.workload)
-    corp, prog, _ = run.start(cell, args.seed, "cuda")
+    prog, state = search.start(cell, args.seed, "cuda", {})
     try:
-        rows = [one_rate(prog, corp, cell, args.seed, r, args.seconds, i)
+        rows = [one_rate(prog, state.corp, cell, args.seed, r, args.seconds, i)
                 for i, r in enumerate(args.rates)]
     finally:
         prog.stop()

@@ -38,7 +38,7 @@ def test_untraced_result_keeps_its_keys():
                      device="cpu", t_start=time.monotonic())
     assert set(r) == {"correct", "attempted", "failed", "metrics", "device",
                       "checks", "_cores", "_host", "_setup", "_failures",
-                      "_lateness_ms"}
+                      "_lateness_ms", "_latency_ms"}
     assert set(r["metrics"]) == {m["name"] for m in cells.spec()["end_to_end"]}
 
 
