@@ -20,21 +20,19 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import json
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence
 
+from modern_search_engines_project_tpu_torch.native import build_lib
 from modern_search_engines_project_tpu_torch.utils.timing import (
     StageTimes,
     stage_timer,
 )
 
 SRC = Path(__file__).resolve().parent / "http_server.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_ROOT = build_lib.BUILD_ROOT
 LIB_NAME = "libmse_http.so"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -54,32 +52,14 @@ RANK_CB = ctypes.CFUNCTYPE(
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    return build_lib.library_path(BUILD_ROOT, SRC, LIB_NAME, GXX_FLAGS)
 
 
 def build() -> Path:
     """Compile ``http_server.cpp`` unless its library exists; raises
     ``RuntimeError`` with g++'s output when the build fails."""
-    so = library_path()
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{os.getpid()}.{threading.get_ident()}.{LIB_NAME}")
-    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:  # no g++ at all
-        raise RuntimeError(f"native http: {' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"native http: g++ failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
-    return so
+    return build_lib.build(BUILD_ROOT, SRC, LIB_NAME, GXX_FLAGS,
+                           "native http")
 
 
 def load_lib() -> ctypes.CDLL:

@@ -5,23 +5,25 @@ kernel path: query preprocessing and term lookup on the host, then BM25
 through one of the slot kernels (``bm25_layout="slots"``, the default) or
 the blocked kernels (``bm25_layout="blocked"``, and every index without
 chunk buckets), the bucketed dense tail with the stats kernel (or, without
-buckets, the packed-bank tail), and host-side dedup, domain
-diversification and result formatting over the (at most)
-``top_k_retrieval`` candidates, and the optional stage 3 (a
-cross-encoder rescoring each query's final rows).  ``bm25_search`` and
-``dense_search`` run one stage alone.  ``use_pallas=False`` takes the
-reference's scatter path (CSR BM25 and the packed bank, no kernel);
-``SearchEngine.sharded`` ranks over an index sharded on a mesh
-(``parallel/sharding.py``).
+buckets, the packed-bank tail), and host-side dedup and domain
+diversification over the (at most) ``top_k_retrieval`` candidates (one
+native call a batch, ``native/finish.cpp``), result formatting, and the
+optional stage 3 (a cross-encoder rescoring each query's final rows).
+``bm25_search`` and ``dense_search`` run one stage alone.
+``use_pallas=False`` takes the reference's scatter path (CSR BM25 and the
+packed bank, no kernel); ``SearchEngine.sharded`` ranks over an index
+sharded on a mesh (``parallel/sharding.py``).
 
 Runs on the card unless the caller passes ``device="cpu"``, where every
 kernel wrapper takes its plain PyTorch version.
 
 Two threads may call one engine at once (the C++ data plane keeps two
 batches in flight): the index is read-only, every call allocates its own
-tensors, the stage timer and the kernels' launch counters take locks, and
-both threads enqueue on the device's current stream, so memory the caching
-allocator hands from one call to the other is stream-ordered.
+tensors, the finishing pass keeps no state between calls (and releases
+the interpreter lock), the stage timer and the kernels' launch counters
+take locks, and both threads enqueue on the device's current stream, so
+memory the caching allocator hands from one call to the other is
+stream-ordered.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 
 from modern_search_engines_project_tpu_torch.config import Config, resolve_approx
 from modern_search_engines_project_tpu_torch.index.builder import IndexArtifacts
+from modern_search_engines_project_tpu_torch.native.native_finish import Finisher
 from modern_search_engines_project_tpu_torch.retrieval import ops
 from modern_search_engines_project_tpu_torch.retrieval.bm25_blocked import (
     blocked_udedup_gate,
@@ -54,7 +57,6 @@ from modern_search_engines_project_tpu_torch.retrieval.numpy_ref import (
 from modern_search_engines_project_tpu_torch.retrieval.rerank import (
     RankedDoc,
     factorize,
-    finish_positions,
 )
 from modern_search_engines_project_tpu_torch.text.analyzer import Analyzer
 from modern_search_engines_project_tpu_torch.utils.timing import (
@@ -105,14 +107,19 @@ class SearchEngine:
         # index without buckets and the scatter path keep the artifact
         # order (no permutation)
         self._result_perm = self.didx.doc_perm if self.use_pallas else None
-        self._init_finish_codes()
+        self._init_finisher()
 
-    def _init_finish_codes(self) -> None:
-        """Per-doc integer codes of the host finishing pass (dedup by
-        query-stripped url, domain diversification)."""
-        self._domain_codes = factorize(self.art.domains)
-        self._base_codes = factorize(
-            [u.split("?", 1)[0] for u in self.art.urls]
+    def _init_finisher(self) -> None:
+        """The host finishing pass (dedup by query-stripped url, domain
+        diversification) over per-doc integer codes, built here, at set-up,
+        and not by the first request."""
+        self._finisher = Finisher(
+            self._result_perm,
+            factorize(self.art.domains),
+            factorize([u.split("?", 1)[0] for u in self.art.urls]),
+            self.art.doc_chunk_start,
+            n_docs_real=len(self.art.doc_ids),
+            n_wins=len(self.art.window_texts),
         )
 
     @classmethod
@@ -163,7 +170,7 @@ class SearchEngine:
         self._device_rank = backend.rank
         if isinstance(encoder, TorchEncoder):
             self._sharded_enc = ShardedQueryEncoder(encoder, mesh)
-        self._init_finish_codes()
+        self._init_finisher()
         return self
 
     # --- host-side query prep ----------------------------------------------
@@ -342,28 +349,17 @@ class SearchEngine:
             self.rank_batch(queries, augment), queries, top_k
         )
 
-    def _finish_rows(self, raw, n_real: int, top_k: int):
-        """Per query: (doc idx, fused score, bm25_norm, window) of the
-        selected rows after dedup and diversification."""
-        doc, vals, old, win, valid = raw
-        doc = self._to_artifact_order(doc, valid)
-        n_valid = valid.sum(axis=1).tolist()
-        n_docs_real = len(self.art.doc_ids)
-        for b in range(n_real):
-            nv = n_valid[b]
-            db = doc[b, :nv]
-            ok = (db >= 0) & (db < n_docs_real)
-            pos0 = np.nonzero(ok)[0]
-            db = db[pos0]
-            sel, sc = finish_positions(
-                vals[b, :nv][pos0],
-                self._domain_codes[db],
-                self._base_codes[db],
-                top_k,
-                relevance_threshold=self.cfg.diversification_threshold,
+    def _finish(self, raw, n_real: int, top_k: int, first_window: bool):
+        """Every query's selected rows after dedup and diversification,
+        in one native call that releases the interpreter lock (span
+        ``finish_native``, one a batch)."""
+        with stage_timer("finish_native", self.times):
+            return self._finisher.run(
+                raw, n_real, top_k,
+                threshold=self.cfg.diversification_threshold,
                 diversification=self.cfg.diversification,
+                first_window=first_window,
             )
-            yield db[sel], sc, old[b, :nv][pos0][sel], win[b, :nv][pos0][sel]
 
     def finish_batch(
         self,
@@ -380,14 +376,13 @@ class SearchEngine:
         n_wins = len(self.art.window_texts)
         out: List[List[RankedDoc]] = []
         with stage_timer("format_diversify", self.times):
-            for b, (d_sel, sc, o_sel, w_sel) in enumerate(self._finish_rows(
-                raw, len(queries), top_k
-            )):
+            fin = self._finish(raw, len(queries), top_k, first_window=False)
+            counts = fin.count.tolist()
+            cols = (fin.doc.tolist(), fin.score.tolist(), fin.old.tolist(),
+                    fin.win.tolist())
+            for b, n in enumerate(counts):
                 ranked: List[RankedDoc] = []
-                for d, s, o, w in zip(
-                    d_sel.tolist(), sc.tolist(), o_sel.tolist(),
-                    w_sel.tolist(),
-                ):
+                for d, s, o, w in zip(*(c[b][:n] for c in cols)):
                     w_ok = 0 <= w < n_wins
                     ranked.append(
                         RankedDoc(
@@ -426,17 +421,11 @@ class SearchEngine:
         doc's first chunk."""
         top_k = top_k or self.cfg.top_k_reranking
         raw = self.rank_batch(queries, augment=augment)
-        n_wins = len(self.art.window_texts)
-        start = self.art.doc_chunk_start
-        out: List[List[tuple]] = []
         with stage_timer("finish_indices", self.times):
-            for d_sel, sc, _o, w_sel in self._finish_rows(
-                raw, len(queries), top_k
-            ):
-                bad = (w_sel < 0) | (w_sel >= n_wins)
-                w_sel = np.where(bad, start[d_sel], w_sel)
-                out.append(list(zip(w_sel.tolist(), sc.tolist())))
-        return out
+            fin = self._finish(raw, len(queries), top_k, first_window=True)
+            wins, scores = fin.win.tolist(), fin.score.tolist()
+            return [list(zip(w[:n], s[:n]))
+                    for w, s, n in zip(wins, scores, fin.count.tolist())]
 
     def search(self, query: str, top_k: Optional[int] = None) -> List[RankedDoc]:
         return self.search_batch([query], top_k=top_k)[0]

@@ -3,7 +3,9 @@
 The device engine (``retrieval/engine.py``) produces the fused+positionally
 adjusted candidate ranking entirely on TPU; diversification is a greedy
 sequential pass over at most ``top_k_retrieval`` rows, so it stays on host
-(SURVEY.md §7 "hard parts" — greedy logic over top-k only).
+(SURVEY.md §7 "hard parts" — greedy logic over top-k only).  The engine
+finishes a whole batch over integer codes in ``native/finish.cpp``; the
+dataclass pipeline below serves the standalone rerank endpoint.
 
 Behavior parity with reference ``reranker/reranker_api.py``:
   * ``apply_domain_cap``         — reranker_api.py:178-194
@@ -143,87 +145,6 @@ def factorize(strings) -> "np.ndarray":
             table[s] = code
         out[i] = code
     return out
-
-
-def diversify_positions(scores, domains, top_k, relevance_threshold):
-    """Array-native ``hybrid_diversification`` (reranker_api.py:196-236).
-
-    ``scores`` must be sorted descending; ``domains`` are integer codes
-    aligned with it.  Returns ``(positions, out_scores)`` — the selected
-    row positions in selection order plus their (possibly backfill-shifted)
-    scores.  Bit-equivalent to the dataclass pipeline (fuzz-tested in
-    tests/test_rerank_fast.py) but ~10x cheaper: the serving host path was
-    dominated by constructing ~1000 RankedDoc objects per query only to
-    throw 90% away.
-    """
-    import numpy as np
-
-    n = len(scores)
-    if n == 0:
-        return np.empty(0, np.int64), np.empty(0, np.float64)
-    is_high = scores >= relevance_threshold
-    high_domains = np.unique(domains[is_high])
-    high_mask = is_high | np.isin(domains, high_domains)
-    hi_pos = np.nonzero(high_mask)[0]
-    me_pos = np.nonzero(~high_mask)[0]
-
-    def cap_one_per_domain(pos):
-        if pos.size == 0:
-            return pos, pos
-        keep = np.zeros(pos.size, bool)
-        keep[np.unique(domains[pos], return_index=True)[1]] = True
-        return pos[keep], pos[~keep]
-
-    hi_keep, hi_drop = cap_one_per_domain(hi_pos)
-    me_keep, me_drop = cap_one_per_domain(me_pos)
-    remaining = top_k - hi_keep.size
-    # list-slice semantics incl. negative `remaining` (reranker_api.py:224)
-    final_pos = np.concatenate([hi_keep, me_keep[:remaining]])
-    order = np.argsort(-scores[final_pos], kind="stable")
-    final_pos = final_pos[order]
-    final_scores = scores[final_pos].astype(np.float64)
-    if final_pos.size < top_k:
-        rest_pos = np.concatenate([hi_drop, me_drop])
-        rest_pos = rest_pos[np.argsort(-scores[rest_pos], kind="stable")]
-        if rest_pos.size:
-            add = rest_pos[: top_k - final_pos.size]
-            eps = 1e-4
-            delta = float(scores[add[0]]) - float(final_scores[-1]) + eps
-            final_pos = np.concatenate([final_pos, add])
-            final_scores = np.concatenate(
-                [final_scores, np.maximum(0.0, scores[add] - delta)]
-            )
-    order = np.argsort(-final_scores, kind="stable")[:top_k]
-    return final_pos[order], final_scores[order]
-
-
-def finish_positions(
-    scores,
-    domains,
-    bases,
-    top_k,
-    relevance_threshold=0.8,
-    diversification=True,
-):
-    """Dedup-by-base-url + diversification over candidate ARRAYS.
-
-    Array twin of ``dedup_by_base_url`` + ``hybrid_diversification`` for the
-    engine hot path: ``scores`` sorted desc, ``domains``/``bases`` integer
-    codes.  Returns ``(positions, out_scores)`` into the input rows.
-    """
-    import numpy as np
-
-    keep = np.sort(np.unique(bases, return_index=True)[1])
-    if not diversification:
-        sel = keep[:top_k]
-        return sel, np.asarray(scores, np.float64)[sel]
-    pos, out = diversify_positions(
-        np.asarray(scores, np.float64)[keep],
-        domains[keep],
-        top_k,
-        relevance_threshold,
-    )
-    return keep[pos], out
 
 
 def positional_adjustment(position: int, total_chunks: int) -> float:

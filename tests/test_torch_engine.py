@@ -122,6 +122,35 @@ def test_search_batch_indices_matches_reference(built, ref_raw):
         np.testing.assert_allclose([x[1] for x in g], [x[1] for x in w], atol=ATOL)
 
 
+@pytest.mark.parametrize("top_k", [10, 60])
+@pytest.mark.parametrize("branch", sorted(BATCHES))
+def test_finishing_equals_reference_on_the_same_rows(built, ref_raw, branch,
+                                                     top_k, monkeypatch):
+    """The port's finish_batch and search_batch_indices (the native pass)
+    over the reference engine's ranked rows, with windows moved outside the
+    index, equal the reference engine's (its numpy loop) exactly; top_k 60
+    is above the pool of 50."""
+    art, eng, ref = built
+    np.testing.assert_array_equal(eng._result_perm, ref._result_perm)
+    doc, vals, old, win, valid = (np.array(x) for x in ref_raw[branch])
+    win[:, ::3] = -1
+    win[:, 1::5] = len(art.window_texts) + 4
+    raw = (doc, vals, old, win, valid)
+    qs = BATCHES[branch]
+    got = eng.finish_batch(raw, qs, top_k)
+    want = ref.finish_batch(raw, qs, top_k)
+    assert sum(map(len, want)) > 0
+    assert [[dataclasses.astuple(r) for r in g] for g in got] == [
+        [dataclasses.astuple(r) for r in w] for w in want]
+    for e in (eng, ref):
+        monkeypatch.setattr(e, "rank_batch", lambda *a, **k: raw)
+    got = eng.search_batch_indices(qs, top_k=top_k)
+    want = ref.search_batch_indices(qs, top_k=top_k)
+    assert got == want
+    assert any(w < 0 or w >= len(art.window_texts) for w in
+               win[valid].tolist())
+
+
 @pytest.mark.parametrize("q", QUERIES)
 def test_matches_numpy_oracle(built, q):
     art, eng, _ = built
